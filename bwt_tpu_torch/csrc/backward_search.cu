@@ -9,169 +9,55 @@
 // Mosaic has no per-lane gather; a CUDA thread loads its own bucket rows,
 // so each read is one thread that stops when its own lane is done.
 //
-// Initial state, by `mode`:
-//   0  C[c0] of the last (effective) character, t0 = 1 (backward_search);
-//      with resolve_n, trailing N's are stripped first and an all-N read
-//      clamps c0 to 'A';
-//   1  the given (start, end) with t0 = 0 and no length clamp
-//      (mms_continue, single_align.c:26-46);
-//   2  the seed-table row of the read's last k characters, t0 = k
-//      (backward_search_seeded).
-// Step t processes pattern[clip(eff_len-1-t, 0, L-1)] while the lane is
-// alive and t <= eff_len-1.  With resolve_n an N (code 5) becomes the
-// symbol with the most occurrences in the current interval, first maximum
-// winning (seqindex.c:330-340).
+// The per-read body is fm::search_lane (fm_search.cuh), which states the
+// three initial-state modes, the N resolution and the step; this file is
+// the shell that gives every read a thread and stores the record.
 //
 // Outputs, each (B,) int32 in one (8, B) array: start, end, sp, ep,
 // nmatched, alive, skips, eff_len.
 //
-// What bounds it on the H100: each step of a read is two dependent 32-byte
-// row loads (the interval's two ends) plus a few dozen integer ops, so a
-// read is a chain of latency-bound loads.  At a 2^25-base genome the
-// bucket table is 16.8 MB and stays in the 50 MB L2, so the chain runs at
-// L2 latency, and throughput comes from enough reads in flight: one thread
-// per read, 256 threads a block, no shared memory.
+// What bounds it on the H100: each step of a read is one or two dependent
+// 32-byte row loads (the interval's two ends) plus a few dozen integer
+// ops, so a read is a chain of latency-bound loads.  At a 2^25-base genome
+// the bucket table is 16.8 MB and stays in the 50 MB L2, so the chain runs
+// at L2 latency, and throughput comes from enough reads in flight: one
+// thread per read, 256 threads a block, the block's reads staged in shared
+// memory where that costs no block in flight (fm_search.cuh).
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "fm_rank.cuh"
+#include "fm_search.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kN = 5;  // the read code of N
 
-__device__ __forceinline__ int char_at(const int* pat, int L, int ci) {
-  return __ldg(pat + min(max(ci, 0), L - 1));
-}
-
-// Trailing N's of pattern[:len] (search.trailing_n).
-__device__ __forceinline__ int trailing_n(const int* pat, int L, int len) {
-  if (len <= 0) return 0;
-  int col = min(len - 1, L - 1);
-  int count = 0;
-  while (col >= 0 && __ldg(pat + col) == kN) {
-    ++count;
-    --col;
-  }
-  return count;
-}
-
-// The seed key of the read's last k characters (search._seed_key): the
-// character processed at step t carries weight 4^t.
-__device__ __forceinline__ int seed_key(const int* pat, int L, int len, int k) {
-  unsigned key = 0;
-  for (int t = 0; t < k; ++t) {
-    const int j = fm::wsub(fm::wsub(len, 1), t);
-    if (j >= 0 && j < L) {
-      key += static_cast<unsigned>(__ldg(pat + j)) << (2 * min(t, 15));
-    }
-  }
-  return static_cast<int>(key);
-}
-
+template <bool kTile>
 __global__ void __launch_bounds__(kThreads)
 backward_search_kernel(const int* __restrict__ patterns,
                        const int* __restrict__ lengths, int B, int L,
                        int steps, int resolve_n, int mode,
                        const int* __restrict__ init_start,
-                       const int* __restrict__ init_end,
-                       const int* __restrict__ seed_rows, int seed_nrows,
-                       int seed_k, fm::Index ix, int* __restrict__ out) {
+                       const int* __restrict__ init_end, fm::SeedRows seed,
+                       fm::Index ix, int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  fm::PatternView<int, kTile> pat(patterns, B, b, L);
   if (b >= B) return;
   const fm::Consts k = fm::load_consts(ix);
-  const int* pat = patterns + static_cast<size_t>(b) * L;
-  const int len = __ldg(lengths + b);
-
-  int skips = 0, eff, start, end, sp, ep, nmatched, t0;
-  bool alive;
-  if (mode == 0) {
-    if (resolve_n) skips = trailing_n(pat, L, len);
-    eff = max(fm::wsub(len, skips), 1);
-    int c0 = char_at(pat, L, eff - 1);
-    if (resolve_n && c0 == kN) c0 = 0;  // all-N read: the reference reads C[5] (UB)
-    start = fm::take_c(k, c0);
-    end = fm::take_c(k, fm::wadd(c0, 1));
-    alive = end > start;
-    sp = start;
-    ep = end;
-    nmatched = alive ? 1 : 0;
-    t0 = 1;
-  } else if (mode == 1) {
-    eff = len;
-    start = sp = __ldg(init_start + b);
-    end = ep = __ldg(init_end + b);
-    alive = end > start;
-    nmatched = 0;
-    t0 = 0;
-  } else {
-    eff = len;
-    int key = seed_key(pat, L, len, seed_k);
-    if (key < 0) key += seed_nrows;
-    if (key < 0 || key >= seed_nrows) {
-      start = end = sp = ep = nmatched = INT_MIN;
-      alive = false;
-    } else {
-      const int* row = seed_rows + 6 * static_cast<size_t>(key);
-      start = __ldg(row);
-      end = __ldg(row + 1);
-      sp = __ldg(row + 2);
-      ep = __ldg(row + 3);
-      nmatched = __ldg(row + 4);
-      alive = __ldg(row + 5) > 0;
-    }
-    t0 = seed_k;
-  }
-
-  const int last = fm::wsub(eff, 1);
-  for (int t = t0; t < steps; ++t) {
-    if (!alive || t > last) break;
-    int c = char_at(pat, L, fm::wsub(last, t));
-    const int is = fm::adjust(k.endloc, start);
-    const int ie = fm::adjust(k.endloc, end);
-    const fm::Row rs = fm::load_row(ix, is);
-    const fm::Row re = fm::load_row(ix, ie);
-    if (resolve_n && c == kN) {
-      int hi[4], lo[4];
-      fm::row_ranks_all4(re, ie & 63, hi);
-      fm::row_ranks_all4(rs, is & 63, lo);
-      int best = 0;
-      int bv = fm::wsub(hi[0], lo[0]);
-#pragma unroll
-      for (int d = 1; d < 4; ++d) {
-        const int v = fm::wsub(hi[d], lo[d]);
-        if (v > bv) {
-          bv = v;
-          best = d;
-        }
-      }
-      c = best;
-    }
-    const int cc = fm::take_c(k, c);
-    const int ns = fm::wadd(cc, fm::row_rank(rs, c, is & 63));
-    const int ne = fm::wadd(cc, fm::row_rank(re, c, ie & 63));
-    start = ns;
-    end = ne;
-    if (ne > ns) {
-      sp = ns;
-      ep = ne;
-      ++nmatched;
-    } else {
-      alive = false;
-    }
-  }
-
-  out[b] = start;
-  out[B + b] = end;
-  out[2 * B + b] = sp;
-  out[3 * B + b] = ep;
-  out[4 * B + b] = nmatched;
-  out[5 * B + b] = alive ? 1 : 0;
-  out[6 * B + b] = skips;
-  out[7 * B + b] = eff;
+  const int s0 = mode == 1 ? __ldg(init_start + b) : 0;
+  const int e0 = mode == 1 ? __ldg(init_end + b) : 0;
+  const fm::Lane r = fm::search_lane(ix, k, pat, __ldg(lengths + b), steps,
+                                     resolve_n != 0, mode, s0, e0, seed);
+  out[b] = r.start;
+  out[B + b] = r.end;
+  out[2 * B + b] = r.sp;
+  out[3 * B + b] = r.ep;
+  out[4 * B + b] = r.nmatched;
+  out[5 * B + b] = r.alive ? 1 : 0;
+  out[6 * B + b] = r.skips;
+  out[7 * B + b] = r.eff;
 }
 
 }  // namespace
@@ -188,8 +74,18 @@ extern "C" int backward_search_launch(
   if (B <= 0) return 0;
   const fm::Index ix{buckets, nrows, C, endloc};
   const int blocks = (B + kThreads - 1) / kThreads;
-  backward_search_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      patterns, lengths, B, L, steps, resolve_n, mode, init_start, init_end,
-      seed_rows, seed_nrows, seed_k, ix, out);
+  const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = fm::tile_bytes(backward_search_kernel<true>, kThreads,
+                                     L * sizeof(int));
+  if (smem) {
+    backward_search_kernel<true><<<blocks, kThreads, smem, s>>>(
+        patterns, lengths, B, L, steps, resolve_n, mode, init_start, init_end,
+        seed, ix, out);
+  } else {
+    backward_search_kernel<false><<<blocks, kThreads, 0, s>>>(
+        patterns, lengths, B, L, steps, resolve_n, mode, init_start, init_end,
+        seed, ix, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

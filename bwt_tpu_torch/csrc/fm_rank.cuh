@@ -1,5 +1,5 @@
-// Rank / LF over the fused 32-byte bucket row: device functions shared by
-// the backward-search (backward_search.cu) and SA-walk (unc_sa.cu) kernels.
+// Rank / LF over the fused 32-byte bucket row: device functions under the
+// search and walk of fm_search.cuh, which every search kernel runs.
 //
 // The counterpart of bwt_tpu/ops/rank.py:199-384 (_adjust, _rows,
 // _row_rank, row_ranks_all4, _row_char, row_lf) and of the port's plain
@@ -40,16 +40,25 @@ struct Row {
   unsigned w[4];
 };
 
-// C and endloc, read once per thread.
+// The step's instruction count matters on the H100: the disassembled step
+// of the first version held about 225 instructions, and the anchor hunts,
+// whose short trips spend much of their time outside the row loads, ran
+// 11-15 % faster once it held about 170 (PERF.md).  So the forms below are
+// chosen by instruction count: C[c] is one cached load, not a five-way
+// select over registers; an occ count is picked by the two bits of c; a
+// lane mask is one funnel shift; a row outside the table is read from a
+// row of INT32_MIN in memory, so the load needs no second form.
+
+// C and endloc as a thread holds them: endloc read once, C[c] read (from
+// L1) where it is used.
 struct Consts {
-  int C[5];
+  const int* C;
   int endloc;
 };
 
 __device__ __forceinline__ Consts load_consts(const Index& ix) {
   Consts k;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) k.C[c] = __ldg(ix.C + c);
+  k.C = ix.C;
   k.endloc = __ldg(ix.endloc);
   return k;
 }
@@ -63,9 +72,8 @@ __device__ __forceinline__ int wsub(int a, int b) {
 }
 
 // C[c] for c in 0..4, 0 for any other c (search.take_c).
-__device__ __forceinline__ int take_c(const Consts& k, int c) {
-  return c == 0 ? k.C[0] : c == 1 ? k.C[1] : c == 2 ? k.C[2]
-       : c == 3 ? k.C[3] : c == 4 ? k.C[4] : 0;
+__device__ __forceinline__ int take_c(const Consts k, int c) {
+  return static_cast<unsigned>(c) < 5u ? __ldg(k.C + c) : 0;
 }
 
 // Sentinel skip: the stored BWT omits the sentinel row (seqindex.c:221-225).
@@ -73,20 +81,18 @@ __device__ __forceinline__ int adjust(int endloc, int idx) {
   return idx > endloc ? idx - 1 : idx;
 }
 
+// What a bucket index outside the table reads: a row of INT32_MIN.
+static __device__ const int4 kNoRow[2] = {
+    {INT_MIN, INT_MIN, INT_MIN, INT_MIN}, {INT_MIN, INT_MIN, INT_MIN, INT_MIN}};
+
 // The bucket row covering adjusted index i: two 16-byte loads.
 __device__ __forceinline__ Row load_row(const Index& ix, int i) {
   int b = i >> 6;  // arithmetic shift, like the int32 tensors'
   if (b < 0) b += ix.nrows;
   Row row;
-  if (b < 0 || b >= ix.nrows) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      row.occ[j] = INT_MIN;
-      row.w[j] = 0x80000000u;
-    }
-    return row;
-  }
-  const int4* p = reinterpret_cast<const int4*>(ix.buckets) + 2 * static_cast<size_t>(b);
+  const int4* p = static_cast<unsigned>(b) < static_cast<unsigned>(ix.nrows)
+      ? reinterpret_cast<const int4*>(ix.buckets) + 2 * static_cast<size_t>(b)
+      : kNoRow;
   const int4 lo = __ldg(p);
   const int4 hi = __ldg(p + 1);
   row.occ[0] = lo.x; row.occ[1] = lo.y; row.occ[2] = lo.z; row.occ[3] = lo.w;
@@ -97,8 +103,9 @@ __device__ __forceinline__ Row load_row(const Index& ix, int i) {
 
 // Mask of the lanes of payload word w below in-bucket offset r (0..63).
 __device__ __forceinline__ unsigned lane_mask(int r, int w) {
-  const int lanes = min(max(r - 16 * w, 0), 16);
-  return lanes >= 16 ? 0xFFFFFFFFu : ((1u << (2 * lanes)) - 1u);
+  // the high word of 0x00000000FFFFFFFF << min(s, 32) is 2^s - 1 for s in
+  // 0..32, s twice the lanes of word w below r
+  return __funnelshift_lc(0xFFFFFFFFu, 0u, max(2 * r - 32 * w, 0));
 }
 
 // One bit (at lane position 2j) per 2-bit lane of `word` equal to the
@@ -109,8 +116,9 @@ __device__ __forceinline__ unsigned eq_mask(unsigned word, unsigned pat) {
 }
 
 __device__ __forceinline__ int occ_of(const Row& row, int c) {
-  return c == 0 ? row.occ[0] : c == 1 ? row.occ[1] : c == 2 ? row.occ[2]
-       : c == 3 ? row.occ[3] : 0;
+  const int even = (c & 2) ? row.occ[2] : row.occ[0];
+  const int odd = (c & 2) ? row.occ[3] : row.occ[1];
+  return static_cast<unsigned>(c) < 4u ? ((c & 1) ? odd : even) : 0;
 }
 
 // rank of symbol c at in-bucket offset r of a fetched row (_row_rank).
@@ -131,24 +139,26 @@ __device__ __forceinline__ void row_ranks_all4(const Row& row, int r, int out[4]
 // BWT symbol at in-bucket offset r (_row_char).
 __device__ __forceinline__ int row_char(const Row& row, int r) {
   const int wi = r >> 4;
-  const unsigned w = wi == 0 ? row.w[0] : wi == 1 ? row.w[1] : wi == 2 ? row.w[2] : row.w[3];
+  const unsigned even = (wi & 2) ? row.w[2] : row.w[0];
+  const unsigned odd = (wi & 2) ? row.w[3] : row.w[1];
+  const unsigned w = (wi & 1) ? odd : even;
   return static_cast<int>((w >> (2 * (r & 15))) & 3u);
 }
 
 // rank(c, idx) with the sentinel skip (rank.rank).
-__device__ __forceinline__ int rank(const Index& ix, const Consts& k, int c, int idx) {
+__device__ __forceinline__ int rank(const Index& ix, const Consts k, int c, int idx) {
   const int i = adjust(k.endloc, idx);
   return row_rank(load_row(ix, i), c, i & 63);
 }
 
 // All four ranks at idx (rank.ranks_all4).
-__device__ __forceinline__ void ranks_all4(const Index& ix, const Consts& k, int idx, int out[4]) {
+__device__ __forceinline__ void ranks_all4(const Index& ix, const Consts k, int idx, int out[4]) {
   const int i = adjust(k.endloc, idx);
   row_ranks_all4(load_row(ix, i), i & 63, out);
 }
 
 // LF-mapping (seqindex.c:214-219), lf(endloc) == 0.
-__device__ __forceinline__ int lf(const Index& ix, const Consts& k, int idx) {
+__device__ __forceinline__ int lf(const Index& ix, const Consts k, int idx) {
   const int i = adjust(k.endloc, idx);
   const Row row = load_row(ix, i);
   const int r = i & 63;

@@ -9,6 +9,9 @@
 // compaction ladder exists because a lockstep batch runs as long as its
 // slowest lane.  Here each thread stops on its own, so there is no ladder.
 //
+// The per-row body is fm::sa_walk (fm_search.cuh); this file is the shell
+// that gives every row a thread.
+//
 // Step bound: a walk from a real row (0..length) reaches row 0, which is
 // sampled, within length + 1 steps.  A lane still walking after `limit`
 // steps stops; when `limit` is that bound (bound_is_limit), the lane
@@ -25,7 +28,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "fm_rank.cuh"
+#include "fm_search.cuh"
 
 namespace {
 
@@ -33,28 +36,14 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 unc_sa_kernel(const int* __restrict__ idx, int B, fm::Index ix,
-              const int* __restrict__ sa_samples, int nsamples, int shift,
-              int length, int limit, int bound_is_limit, int* __restrict__ out,
-              int* __restrict__ flag) {
+              fm::Samples sa, int limit, int bound_is_limit,
+              int* __restrict__ out, int* __restrict__ flag) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const fm::Consts k = fm::load_consts(ix);
-  const int mask = (1 << shift) - 1;
-  int i = __ldg(idx + b);
-  int steps = 0;
-  while ((i & mask) != 0 && steps < limit) {
-    i = fm::lf(ix, k, i);
-    ++steps;
-  }
-  if (bound_is_limit && (i & mask) != 0) {
-    atomicAdd(flag, 1);
-    atomicMax(flag + 1, B - b);
-  }
-  int s = i >> shift;
-  if (s < 0) s += nsamples;
-  const int v = (s < 0 || s >= nsamples) ? INT_MIN : __ldg(sa_samples + s);
-  const int x = fm::wadd(v, steps);
-  out[b] = x > length ? fm::wsub(x, length + 1) : x;
+  const fm::Walk w = fm::sa_walk(ix, k, sa, __ldg(idx + b), limit);
+  out[b] = w.pos;
+  if (bound_is_limit && w.unsampled) fm::raise_flag(flag, B, b);
 }
 
 }  // namespace
@@ -71,7 +60,7 @@ extern "C" int unc_sa_launch(const int* idx, int B, const int* buckets,
   const fm::Index ix{buckets, nrows, C, endloc};
   const int blocks = (B + kThreads - 1) / kThreads;
   unc_sa_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, B, ix, sa_samples, nsamples, shift, length, limit, bound_is_limit,
-      out, flag);
+      idx, B, ix, fm::Samples{sa_samples, nsamples, shift, length}, limit,
+      bound_is_limit, out, flag);
   return static_cast<int>(cudaGetLastError());
 }

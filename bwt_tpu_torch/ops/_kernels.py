@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _lock = threading.Lock()
+LAST_REPORT = ""  # what the compiler said in the last build(verbose=True)
 
 
 def sources() -> list[Path]:
@@ -56,8 +57,10 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless this source hash is already built.
-    ``verbose`` adds ``-Xptxas -v`` and echoes the compiler's report
-    (registers, shared memory, spills) to stderr.  Raises on failure."""
+    ``verbose`` adds ``-Xptxas -v``, echoes the compiler's report
+    (registers, stack frame, spills) to stderr and keeps it in
+    ``LAST_REPORT``.  Raises on failure."""
+    global LAST_REPORT
     out = library_path()
     if out.exists() and not verbose:
         return out
@@ -84,6 +87,8 @@ def build(verbose: bool = False) -> Path:
                     f"{' '.join(cmd)}\n{so}{se}")
             if verbose:
                 sys.stderr.write(se)
+        if verbose:
+            LAST_REPORT = "".join(se for *_, se in results)
         res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
@@ -108,7 +113,11 @@ def library() -> ctypes.CDLL:
                     ("backward_search_launch",
                      [P, P, I, I, I, I, I, P, P, P, I, I, P, I, P, P, P, P]),
                     ("unc_sa_launch",
-                     [P, I, P, I, P, P, P, I, I, I, I, I, P, P, P])):
+                     [P, I, P, I, P, P, P, I, I, I, I, I, P, P, P]),
+                    ("anchor_scan_launch",
+                     [P, I, P, I, I, I, I, P, I, P, P, P, I, I, I, P, P]),
+                    ("locate_launch",
+                     [P, P, I, I, P, I, I, P, I, P, P, P, I, I, I, P, P])):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

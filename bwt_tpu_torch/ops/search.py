@@ -2,10 +2,14 @@
 
 On the card, a batch's backward search is one launch of the K3 kernel
 (``csrc/backward_search.cu``, one thread per read) and its SA walks one
-launch of K4 (``csrc/unc_sa.cu``, one thread per walk); both use the
-rank/LF device functions of K2 (``csrc/fm_rank.cuh``).  On the CPU the
-same wrappers run the plain versions, :func:`backward_search_plain` and
-:func:`unc_sa_plain`, in which every read of a batch steps through its
+launch of K4 (``csrc/unc_sa.cu``, one thread per walk); :func:`locate`
+is one launch of ``csrc/locate.cu`` (search, then walk, in one thread per
+read), and the anchor hunt of ``models/exact.py`` one launch of
+``csrc/anchor_scan.cu`` (:func:`anchor_scan_kernel`).  All four run the
+device functions of ``csrc/fm_search.cuh`` over the rank/LF functions of
+K2 (``csrc/fm_rank.cuh``).  On the CPU the same wrappers run the plain
+versions, :func:`backward_search_plain`, :func:`unc_sa_plain` and
+:func:`locate_plain`, in which every read of a batch steps through its
 characters together, finished reads are masked out, and the loop stops
 once no read is active.  The reference's quirks are kept
 (seqindex.c:228-351):
@@ -199,6 +203,8 @@ def _seed_key(patterns: torch.Tensor, lengths: torch.Tensor, k: int):
 # reset them to show that a run went through the kernels)
 BS_LAUNCHES = 0
 UNC_LAUNCHES = 0
+LOCATE_LAUNCHES = 0
+ANCHOR_LAUNCHES = 0
 
 _FIELDS = ("start", "end", "sp", "ep", "nmatched", "alive", "skips",
            "eff_len")
@@ -274,8 +280,42 @@ def _check_index(fmi: FMIndex) -> None:
 
 
 def _stream(dev: torch.device) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _index_args(fmi: FMIndex) -> tuple:
+    """The index as the launch functions take it (fm::Index)."""
+    return (fmi.buckets.data_ptr(), fmi.buckets.shape[0], fmi.C.data_ptr(),
+            fmi.endloc.data_ptr())
+
+
+def _samples_args(fmi: FMIndex) -> tuple:
+    """The sampled suffix array as the launch functions take it
+    (fm::Samples)."""
+    return (fmi.sa_samples.data_ptr(), fmi.sa_samples.shape[0],
+            fmi.sa_rate.bit_length() - 1, fmi.length)
+
+
+def _check_reads(patterns: torch.Tensor, lengths: torch.Tensor) -> None:
+    if patterns.dim() != 2 or lengths.shape != patterns.shape[:1]:
+        raise ValueError(f"patterns (B, L) and lengths (B,) expected, got "
+                         f"{tuple(patterns.shape)} and {tuple(lengths.shape)}")
+    if patterns.shape[0] and patterns.shape[1] == 0:
+        raise ValueError("patterns must have at least one column")
+
+
+def _seed_args(fmi: FMIndex, seed_table: SeedTable | None) -> tuple:
+    """The seed table as the launch functions take it (fm::SeedRows);
+    nulls for none."""
+    if seed_table is None:
+        return None, 0, 0
+    rows = seed_table.rows
+    if (rows.device != fmi.device or rows.dtype != torch.int32
+            or rows.dim() != 2 or rows.shape[1] != 6
+            or not rows.is_contiguous()):
+        raise ValueError("seed_table.rows must be a contiguous (4^k, 6) "
+                         f"int32 tensor on {fmi.device}")
+    return rows.data_ptr(), rows.shape[0], seed_table.k
 
 
 def _backward_search_kernel(fmi: FMIndex, patterns, lengths, *,
@@ -288,13 +328,11 @@ def _backward_search_kernel(fmi: FMIndex, patterns, lengths, *,
     dev = fmi.device
     patterns = _i32(patterns, fmi).contiguous()
     lengths = _i32(lengths, fmi).contiguous()
-    if patterns.dim() != 2 or lengths.shape != patterns.shape[:1]:
-        raise ValueError(f"patterns (B, L) and lengths (B,) expected, got "
-                         f"{tuple(patterns.shape)} and {tuple(lengths.shape)}")
+    _check_reads(patterns, lengths)
     B, L = patterns.shape
     steps = max_len if max_len is not None else L
     out = torch.empty((len(_FIELDS), B), dtype=torch.int32, device=dev)
-    mode, sp, ep, rows, nrows, k = 0, None, None, None, 0, 0
+    mode, sp, ep = 0, None, None
     if start is not None:
         mode = 1
         sp = _i32(start, fmi).contiguous()
@@ -303,25 +341,15 @@ def _backward_search_kernel(fmi: FMIndex, patterns, lengths, *,
             raise ValueError("start and end must be (B,)")
     elif seed_table is not None:
         mode = 2
-        rows, k = seed_table.rows, seed_table.k
-        if (rows.device != dev or rows.dtype != torch.int32
-                or rows.dim() != 2 or rows.shape[1] != 6
-                or not rows.is_contiguous()):
-            raise ValueError("seed_table.rows must be a contiguous (4^k, 6) "
-                             f"int32 tensor on {dev}")
-        nrows = rows.shape[0]
+    seed = _seed_args(fmi, seed_table if mode == 2 else None)
     if B:
-        if L == 0:
-            raise ValueError("patterns must have at least one column")
         lib = _kernels.library()
         err = lib.backward_search_launch(
             patterns.data_ptr(), lengths.data_ptr(), B, L, steps,
             int(resolve_n), mode,
             None if sp is None else sp.data_ptr(),
-            None if ep is None else ep.data_ptr(),
-            None if rows is None else rows.data_ptr(), nrows, k,
-            fmi.buckets.data_ptr(), fmi.buckets.shape[0], fmi.C.data_ptr(),
-            fmi.endloc.data_ptr(), out.data_ptr(), _stream(dev))
+            None if ep is None else ep.data_ptr(), *seed,
+            *_index_args(fmi), out.data_ptr(), _stream(dev))
         if err != 0:
             raise RuntimeError(f"backward_search kernel launch failed: CUDA "
                                f"error {err}")
@@ -452,10 +480,8 @@ def _unc_sa_kernel(fmi: FMIndex, idx, max_steps: int | None = None):
         flag = torch.zeros(2, dtype=torch.int32, device=dev)
         lib = _kernels.library()
         err = lib.unc_sa_launch(
-            flat.data_ptr(), B, fmi.buckets.data_ptr(), fmi.buckets.shape[0],
-            fmi.C.data_ptr(), fmi.endloc.data_ptr(), fmi.sa_samples.data_ptr(),
-            fmi.sa_samples.shape[0], fmi.sa_rate.bit_length() - 1,
-            fmi.length, max(limit, 0), int(limit == bound), out.data_ptr(),
+            flat.data_ptr(), B, *_index_args(fmi), *_samples_args(fmi),
+            max(limit, 0), int(limit == bound), out.data_ptr(),
             flag.data_ptr(), _stream(dev))
         if err != 0:
             raise RuntimeError(f"unc_sa kernel launch failed: CUDA error "
@@ -481,13 +507,131 @@ def unc_sa(fmi: FMIndex, idx, max_steps: int | None = None):
     return unc_sa_plain(fmi, idx, max_steps)
 
 
+def locate_plain(fmi: FMIndex, patterns, lengths, seed_table=None):
+    """The plain PyTorch version of the locate kernel, on any device:
+    the plain backward search (seeded or not), then the plain SA walk of
+    every lane's interval start."""
+    lengths = _i32(lengths, fmi)
+    r = backward_search_plain(fmi, patterns, lengths, seed_table=seed_table)
+    pos = unc_sa_plain(fmi, r["start"])
+    return torch.where(_emptied_early(r, lengths), -1, pos)
+
+
+def locate_kernel(fmi: FMIndex, patterns, lengths, seed_table=None):
+    """Launch ``csrc/locate.cu``: one thread per read searches and walks.
+    Returns (B + 2,) int32: the positions, then the kernel's flag.  It
+    does not synchronise: :func:`locate` reads the flag and raises."""
+    global LOCATE_LAUNCHES
+    _check_index(fmi)
+    dev = fmi.device
+    patterns = _i32(patterns, fmi).contiguous()
+    lengths = _i32(lengths, fmi).contiguous()
+    _check_reads(patterns, lengths)
+    B, L = patterns.shape
+    seed = _seed_args(fmi, seed_table)
+    out = torch.empty(B + 2, dtype=torch.int32, device=dev)
+    out[B:] = 0
+    if B:
+        lib = _kernels.library()
+        err = lib.locate_launch(
+            patterns.data_ptr(), lengths.data_ptr(), B, L, *seed,
+            *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
+            _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"locate kernel launch failed: CUDA error "
+                               f"{err}")
+        LOCATE_LAUNCHES += 1
+    return out
+
+
 def locate(fmi: FMIndex, patterns, lengths, seed_table=None):
     """First-match position per read (seqindex.c:258-277); -1 when the
-    interval emptied before the final character."""
-    lengths = _i32(lengths, fmi)
-    r = _search(fmi, patterns, lengths, seed_table)
-    pos = unc_sa(fmi, r["start"])
-    return torch.where(_emptied_early(r, lengths), -1, pos)
+    interval emptied before the final character.  Every read's interval
+    start is walked, so a start past the suffix array raises
+    RuntimeError as :func:`unc_sa` does.  On the card this is one launch
+    of the locate kernel; on the CPU, the plain version."""
+    if not _on_card(fmi):
+        return locate_plain(fmi, patterns, lengths, seed_table)
+    out = locate_kernel(fmi, patterns, lengths, seed_table)
+    B = out.shape[0] - 2
+    n_over, top = out[B:].tolist()  # top = B - the first lane over
+    if n_over:  # the lane's slot holds the row it walked from
+        raise _overrun(int(out[B - top]), fmi.length + 1, fmi.length)
+    return out[:B]
+
+
+# --------------------------------------------------------------------------
+# the anchor hunt of models/exact.py: the fused kernel's launch
+# --------------------------------------------------------------------------
+
+_PATTERN_ELEM = {torch.int32: 4, torch.uint8: 1, torch.int8: -1}
+
+
+def anchor_scan_kernel(fmi: FMIndex, patterns: torch.Tensor,
+                       lengths: torch.Tensor, *, min_anchor: int,
+                       reverse: bool = False, out: torch.Tensor | None = None):
+    """Launch ``csrc/anchor_scan.cu``: one thread per read runs the whole
+    anchor hunt (``models.exact.anchor_scan_plain``) and the SA walk of
+    its last anchor.  ``patterns`` (B, L) int32, uint8 or int8 codes and
+    ``lengths`` (B,) int32, contiguous, on the index's device.  Returns
+    ``out``, (2B + 4,) int32: the anchor counts, the positions, and the
+    kernel's flag (pass an all-zero ``out`` to reuse one).  It does not
+    synchronise: the caller reads the flag with the results and hands
+    both to :func:`anchor_scan_raise`."""
+    global ANCHOR_LAUNCHES
+    _check_index(fmi)
+    dev = fmi.device
+    _check_reads(patterns, lengths)
+    B, L = patterns.shape
+    for name, t, ok in (("patterns", patterns, tuple(_PATTERN_ELEM)),
+                        ("lengths", lengths, (torch.int32,))):
+        if t.device != dev or t.dtype not in ok or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {dev} "
+                             f"of dtype {' / '.join(map(str, ok))}")
+    if out is None:
+        out = torch.zeros(2 * B + 4, dtype=torch.int32, device=dev)
+    elif (out.device != dev or out.dtype != torch.int32
+          or out.shape != (2 * B + 4,) or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous (2B + 4,) int32 tensor "
+                         f"on {dev}")
+    if not -2 ** 31 <= min_anchor < 2 ** 31:
+        raise ValueError(f"min_anchor {min_anchor} is not an int32")
+    if B:
+        lib = _kernels.library()
+        err = lib.anchor_scan_launch(
+            patterns.data_ptr(), _PATTERN_ELEM[patterns.dtype],
+            lengths.data_ptr(), B, L, int(min_anchor), int(reverse),
+            *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
+            _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"anchor_scan kernel launch failed: CUDA "
+                               f"error {err}")
+        ANCHOR_LAUNCHES += 1
+    return out
+
+
+def no_progress(read: int, min_anchor: int) -> RuntimeError:
+    """What the anchor hunt raises, from the kernel's flag or from the
+    plain version, for a trip that would repeat forever."""
+    return RuntimeError(
+        f"anchor_scan: read {read} made an anchor that consumes nothing "
+        f"(matched + skipped <= 0 passes min_anchor = {min_anchor}); the "
+        f"hunt would never end")
+
+
+def anchor_scan_raise(fmi: FMIndex, out, min_anchor: int,
+                      first: int = 0) -> None:
+    """Raise what the flag of an :func:`anchor_scan_kernel` output says:
+    a hunt that made no progress, or a walk from a row past the suffix
+    array.  ``out`` is the kernel's (2B + 4,) output, as a tensor on any
+    device (reading it synchronises) or as a numpy array; ``first`` is
+    the number of the batch's first read, for the message."""
+    B = (len(out) - 4) // 2
+    n_over, top_over, n_stuck, top_stuck = out[2 * B:].tolist()
+    if n_stuck:
+        raise no_progress(first + B - top_stuck, min_anchor)
+    if n_over:  # the lane's position slot holds the row it walked from
+        raise _overrun(int(out[B + B - top_over]), fmi.length + 1, fmi.length)
 
 
 def isa_window(fmi: FMIndex, plo, width, *, W: int = 32):

@@ -12,8 +12,9 @@ the card's name and power limit:
   3. index build of a 2^25-base random genome at sa_sample_rate 4,
      checked with verify_suffix_array;
   4. locate of 2^20 random 30-mers cut from the genome, plain and with a
-     k = 12 seed table, through the backward-search and SA-walk kernels
-     (K3, K4): every position checked against the genome;
+     k = 12 seed table, one launch of the fused locate kernel a call: every
+     position checked against the genome; count_matches on the same
+     patterns through the standalone backward-search kernel (K3);
   5. single_align (align_reads) on 4096 reads of 80 bp with one
      substitution each: the DP kernel and K4 must have been launched,
      every aligned CIGAR consumes its read, at least half the reads land
@@ -22,24 +23,58 @@ the card's name and power limit:
   6. the CLI (build_index, single_align, locate, search_reads) as
      subprocesses with ``--platform cuda`` on a 1 Mb genome and 512
      reads: stdout equals the same run in process;
-  7. K3 and K4 against their plain versions on the card, bit-equal, on
-     the 2^25-base index: 2^16 mixed reads in each initial-state mode and
-     2^20 30-mers; 2^20 random rows plus rows 0, endloc and n; the step
-     bound raising on a row past the suffix array;
-  8. search_reads on 2^20 unmutated 50-bp reads cut from the genome:
-     every forward read anchors at its origin, and an 8,192-read subset
-     gives the same result dict through the plain versions on the CPU.
+  7. every search kernel against its plain version on the card, bit-equal,
+     on the 2^25-base index, each timed by CUDA events beside its bound:
+     K3 on 2^16 mixed reads in each initial-state mode and on 2^20 30-mers;
+     K4 on 2^20 random rows plus rows 0, endloc and n; the fused
+     anchor_scan on the mixed reads and on one search_reads chunk (32,768
+     x 50 bp, uint8), forward and reversed, also against the unfused loop
+     of K3 launches and a K4 launch that it replaces; the fused locate on
+     the 30-mers and on the mixed reads, plain and seeded; the walk's step
+     bound and the hunt's no-progress bound raising on the card;
+  8. search_reads on 2^20 unmutated 50-bp reads cut from the genome (a
+     uint8 code array): two anchor_scan launches a chunk and no K3 or K4,
+     every forward read anchors at its origin, an 8,192-read subset gives
+     the same result dict through the plain versions on the CPU;
+  9. one torch.profiler window over each exact-search path, last because
+     the profiler slows every later launch of its process: locate plain
+     and seeded (device busy time, device ops), and search_reads, whose
+     wall it splits into host encode, upload, kernels and download.
 Each path of phases 4, 5 and 8 runs with the kernels' launch counts set
 to 0 just before it and read just after.  Then one JSON line with the
-kernels, the nvidia-smi line, and as the last line ``{"ok": true,
+five kernels, the nvidia-smi line, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and exits non-zero; so does
 a machine without CUDA.
+
+A kernel's bound is the least time the card could take for the same
+work: the larger of its bytes over 3.35 TB/s (each input the run needs
+read once, each output written once; of the index, the 32-byte sectors
+its steps touch, at most the whole table) and its operations over
+33.5 T/s.  The operations are integer and logic ones, for which the
+card's data sheet names no rate: 33.5 T/s is what its schedulers can
+start (132 SMs x 128 lanes x 1.98 GHz, the rate behind its 67 TFLOP/s of
+float32 at two operations an instruction), which no mix exceeds.  They are
+counted from what the function computes, not from the kernel's code: the
+steps taken on this run's data times the operations of one step.  A rank
+over a 64-entry row is, for each of its four words, xor, shift, or,
+and-not, mask, popcount and add, plus the add of the stored count
+(RANK_OPS); a search step is two ranks, the two adds of C[c], the compare
+of the new interval's ends and the match count (SEARCH_STEP_OPS); a walk
+step is one rank, the row's symbol (shift, mask), the add of C[c], the
+test for a sampled row and the step count (WALK_STEP_OPS); a DP cell is
+the match test and its score (5), the two gap scores (4 each), two maxima
+and the pointer (4) (DP_CELL_OPS).  The resolution of an N, forming the
+lane masks, addresses and branches are left out, so the bound is, if
+anything, low.  No PyTorch call computes a backward search, an SA walk,
+an anchor hunt or an affine-gap DP fill, so ``library_ms`` is null for
+every kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +88,12 @@ ALT_SCORING = (1, -2, -9, -1)
 READ_LEN = 80
 SEED_K = 12
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+OPS_PER_S = 33.5e12   # 132 SMs x 128 lanes x 1.98 GHz
+RANK_OPS = 4 * 7 + 1             # operations of one rank over a fetched row
+SEARCH_STEP_OPS = 2 * RANK_OPS + 4   # of one backward-search step
+WALK_STEP_OPS = RANK_OPS + 6         # of one LF step of the SA walk
+DP_CELL_OPS = 19                     # of one affine-gap DP cell
 
 class SmokeFailure(RuntimeError):
     pass
@@ -153,6 +194,42 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound_of(nbytes: float, ops: float) -> dict:
+    """The least time for ``nbytes`` of traffic and ``ops`` operations,
+    and which of the two sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=int(nbytes), ops=int(ops))
+
+
+def device_profile(fn) -> dict:
+    """One torch.profiler window over ``fn()``: traced wall, device busy
+    time, device operations, and time and count by device-op name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for k in prof.key_averages():
+        if k.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(k.key, (0, 0.0))
+            by_name[k.key] = (n + k.count,
+                              ms + k.self_device_time_total / 1e3)
+    busy = sum(ms for _, ms in by_name.values())
+    require(busy > 0, "torch.profiler saw no device time")
+    return dict(wall_s=wall, busy_ms=busy,
+                ops=sum(n for n, _ in by_name.values()), by_name=by_name)
+
+
 def phase_kernel(rng, tag):
     """Phase 2: the DP kernel against its plain twin, bit-equal."""
     import torch
@@ -176,12 +253,16 @@ def phase_kernel(rng, tag):
         ms = cuda_ms(lambda: dw.dp_fill_wavefront(r, g, scoring=scoring), 20)
         plain_ms = cuda_ms(
             lambda: dw.dp_fill_wavefront_plain(r, g, scoring=scoring), 3)
+        cells = B * (L1 + L2 + 1) * (L1 + 1)  # stored, by diagonal and row
+        bound = bound_of(4 * (r.numel() + g.numel()) + 8 * cells,
+                         DP_CELL_OPS * cells)
         rows.append(dict(B=B, L1=L1, L2=L2, scoring=scoring or "default",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound))
         print(f"phase 2 dp_wavefront B={B} L1={L1} L2={L2} "
               f"scoring={scoring or 'default'}: bit-equal (tolerance 0, "
               f"max |dv| {err}), kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms {tag}", flush=True)
+              f"ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
+              f"ms by {bound['bound_by']} {tag}", flush=True)
     return rows
 
 
@@ -219,8 +300,10 @@ def phase_build(codes_np, device, tag):
 
 
 def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
-    """Phase 4: locate random k-mers, plain and seeded, through K3 and
-    K4; every position checked.  Returns the report and the seed table."""
+    """Phase 4: locate random k-mers, plain and seeded, one launch of the
+    fused kernel a call, every position checked; count_matches through
+    the standalone K3.  Returns the report, the seed table and the
+    patterns."""
     import numpy as np
     import torch
 
@@ -240,28 +323,47 @@ def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
     for name, st in (("plain", None), (f"seeded k={SEED_K}", table)):
         search.locate(fmi, pats[:1024], lens[:1024], seed_table=st)  # warm-up
         torch.cuda.synchronize()
-        search.BS_LAUNCHES = search.UNC_LAUNCHES = 0
-        t0 = time.perf_counter()
-        pos = search.locate(fmi, pats, lens, seed_table=st)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        bs, unc = search.BS_LAUNCHES, search.UNC_LAUNCHES
-        require(bs > 0 and unc > 0,
-                f"locate ({name}) did not launch K3 and K4: {bs}, {unc}")
+        walls = []
+        for _ in range(2):  # the first call at this size also allocates
+            search.LOCATE_LAUNCHES = search.BS_LAUNCHES = 0
+            search.UNC_LAUNCHES = 0
+            t0 = time.perf_counter()
+            pos = search.locate(fmi, pats, lens, seed_table=st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = (search.LOCATE_LAUNCHES, search.BS_LAUNCHES,
+                        search.UNC_LAUNCHES)
+            require(launches == (1, 0, 0),
+                    f"locate ({name}) is not one launch of the locate "
+                    f"kernel: locate, K3, K4 launches {launches}")
+        dt = walls[1]
         require(bool(((pos >= 0) & (pos <= len(codes_np) - plen)).all()),
                 f"locate ({name}) returned a position outside the genome")
         win = g[(pos.long()[:, None] + torch.arange(plen, device=dev))]
         require(bool((win == pats).all()),
                 f"a located position ({name}) does not hold its pattern")
         key = "plain" if st is None else "seeded"
-        report[key] = dict(s=dt, per_s=nq / dt, bs_launches=bs,
-                           unc_launches=unc)
+        report[key] = dict(s=dt, per_s=nq / dt, first_s=walls[0], launches=1)
         print(f"phase 4 locate {nq} x {plen}-mers ({name}): all positions "
-              f"checked, {nq / dt:.1f} locates/s ({dt:.4f} s), K3 launches "
-              f"{bs}, K4 launches {unc} {tag}", flush=True)
+              f"checked, {nq / dt:.1f} locates/s ({dt:.6f} s; the first call "
+              f"at this size, which also allocates, {walls[0]:.6f} s), "
+              f"locate kernel launches 1 a call, K3 and K4 launches 0 {tag}",
+              flush=True)
+    search.BS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    counts = search.count_matches(fmi, pats, lens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(search.BS_LAUNCHES == 1, "count_matches did not launch K3 once")
+    require(bool((counts >= 1).all()), "a pattern cut from the genome has "
+                                       "no match")
+    report["count_matches"] = dict(s=dt, per_s=nq / dt, bs_launches=1)
+    print(f"phase 4 count_matches {nq} x {plen}-mers: every count >= 1, "
+          f"{nq / dt:.1f} patterns/s ({dt:.6f} s), K3 launches 1 {tag}",
+          flush=True)
     print(f"phase 4 seed table k={SEED_K}: {4 ** SEED_K} rows built in "
           f"{table_s:.3f} s {tag}", flush=True)
-    return report, table
+    return report, table, (pats, lens)
 
 
 def _cigar_read_len(cig) -> int:
@@ -285,6 +387,7 @@ def phase_align(fmi, codes_np, rng, nreads, tag, subset=256):
                               with_strand=True)
     dt = time.perf_counter() - t0
     launches, unc = dp_wavefront.LAUNCHES, search.UNC_LAUNCHES
+    bs = search.BS_LAUNCHES
     require(launches > 0, "the DP kernel was not launched by single_align")
     require(unc > 0, "K4 (unc_sa) was not launched by single_align")
     aligned = [(k, r) for k, r in enumerate(res) if r[0]]
@@ -317,7 +420,8 @@ def phase_align(fmi, codes_np, rng, nreads, tag, subset=256):
           f"{launches}, K4 launches {unc}; {subset}-read subset equal "
           f"through kernel and plain twin {tag}", flush=True)
     return dict(n=nreads, s=dt, per_s=nreads / dt, at_true=share,
-                aligned=len(aligned), launches=launches, unc_launches=unc)
+                aligned=len(aligned), launches=launches, unc_launches=unc,
+                bs_launches=bs)
 
 
 def phase_cli(rng, workdir: Path, tag, glen=1_000_000, nreads=512):
@@ -370,25 +474,115 @@ def phase_cli(rng, workdir: Path, tag, glen=1_000_000, nreads=512):
     return dict(s=dt, aligned=naligned, located=located, paired=paired)
 
 
-def _fields_equal(a: dict, b: dict) -> tuple[bool, int]:
-    """Whether two backward-search result dicts are equal, and the
-    largest absolute difference over their int fields."""
+def _max_abs_diff(got, want) -> int:
+    """Largest absolute difference over paired int tensors."""
     import torch
 
     err = 0
-    for k in a:
-        d = (a[k].to(torch.int64) - b[k].to(torch.int64)).abs()
+    for a, b in zip(got, want):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
-    return all(torch.equal(a[k], b[k]) for k in a), err
+    return err
+
+
+def _event_ms(fn):
+    """``fn()`` once between CUDA events: its result and its time in ms."""
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _search_steps(r, n0, started):
+    """Per lane, the LF steps a backward search took, from its record: the
+    matches made after the initial state's ``n0``, plus the step that
+    emptied the interval of a lane that ``started`` alive."""
+    import torch
+
+    made = (r["nmatched"].to(torch.int64) - n0).clamp(min=0)
+    return made + (started & ~r["alive"])
+
+
+def _walk_steps(fmi, idx) -> int:
+    """LF steps of the SA walks from rows ``idx``, counted with the plain
+    LF on the card."""
+    import torch
+
+    from bwt_tpu_torch.ops import rank as rank_ops
+
+    i, total, mask = idx, 0, fmi.sa_rate - 1
+    for _ in range(1 << 12):
+        live = (i & mask) != 0
+        n = int(live.sum())
+        if not n:
+            return total
+        total += n
+        i = torch.where(live, rank_ops.lf(fmi.buckets, fmi.C, fmi.endloc, i),
+                        i)
+    raise SmokeFailure("a walk took more than 4,096 steps")
+
+
+def _index_bytes(fmi, search_steps: int, walk_steps: int, walks: int) -> int:
+    """Bytes of the index a kernel's steps need: a 32-byte sector a row
+    fetched (two a search step, one a walk step) and one a sample read,
+    each table counted at most once whole."""
+    rows = 32 * (2 * search_steps + walk_steps)
+    return (min(4 * fmi.buckets.numel(), rows)
+            + min(4 * fmi.sa_samples.numel(), 32 * walks))
+
+
+def _anchor_scan_unfused(fmi, pats, lens, min_anchor):
+    """The loop that the fused anchor scan replaces: one K3 launch and a
+    host sync a trip, then one K4 launch.  Returns (counts, positions),
+    the search and walk steps taken, the walks, the trips, and the loop's
+    wall time in ms (with one more sync a trip, for the step count)."""
+    import torch
+
+    from bwt_tpu_torch.ops import search
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    len_b = lens.clone()
+    nmatch = torch.zeros_like(lens)
+    anchor_sp = torch.zeros_like(lens)
+    steps = trips = 0
+    while True:
+        active = len_b > min_anchor
+        if not bool(active.any()):
+            break
+        r = search.search_lanes(fmi, pats, torch.where(active, len_b, 1),
+                                resolve_n=True)
+        steps += int(_search_steps(r, 1, r["nmatched"] >= 1)[active].sum())
+        m = r["nmatched"] + r["skips"]
+        got = active & (m >= min_anchor)
+        anchor_sp = torch.where(got, r["sp"], anchor_sp)
+        nmatch = nmatch + got.to(torch.int32)
+        len_b = torch.where(active, torch.where(got, len_b - m, len_b - 1),
+                            len_b)
+        trips += 1
+    pos = torch.where(nmatch > 0, search.unc_sa(fmi, anchor_sp), -1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    walked = anchor_sp[nmatch > 0]
+    return ((nmatch, pos), steps, _walk_steps(fmi, walked),
+            int(walked.numel()), trips, wall_ms)
 
 
 def phase_search_kernels(fmi, codes_np, rng, table, tag, nmixed=1 << 16,
-                         nlocate=1 << 20, nrows=1 << 20):
-    """Phase 7: K3 and K4 against their plain versions, bit-equal."""
+                         nlocate=1 << 20, nrows=1 << 20, chunk=1 << 15):
+    """Phase 7: every search kernel against its plain version, bit-equal,
+    each timed beside its bound."""
     import numpy as np
     import torch
 
     import bwt_tpu_torch
+    from bwt_tpu_torch.models import exact
     from bwt_tpu_torch.ops import search
 
     dev = fmi.device
@@ -404,63 +598,157 @@ def phase_search_kernels(fmi, codes_np, rng, table, tag, nmixed=1 << 16,
     kmers = torch.from_numpy(codes_np[np.add.outer(starts, np.arange(30))]
                              .astype(np.int32)).to(dev)
     klens = torch.full((nlocate,), 30, dtype=torch.int32, device=dev)
-    cases = [
-        ("C[c0]", pats, lens, {}),
-        ("C[c0] resolve_n", pats, lens, dict(resolve_n=True)),
-        (f"seed table k={SEED_K}", pats, lens, dict(seed_table=table)),
-        ("given interval (mms_continue)", pats, lens,
-         dict(resolve_n=True, start=sp, end=ep)),
-        ("C[c0], 30-mers", kmers, klens, {}),
-    ]
     rows = []
-    for name, p, ln, kw in cases:
+
+    def report(kernel, case, shape, err, ms, plain_ms, bound, extra=""):
+        rows.append(dict(kernel=kernel, case=case, shape=shape,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound))
+        print(f"phase 7 {kernel} {case} {shape}: bit-equal (tolerance 0, "
+              f"max |d| {err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bytes']} bytes, {bound['ops']} operations)"
+              f"{extra} {tag}", flush=True)
+
+    # K3: (name, patterns, lengths, keywords, n0, bytes of the initial state)
+    cases = [
+        ("C[c0]", pats, lens, {}, 1, 0),
+        ("C[c0] resolve_n", pats, lens, dict(resolve_n=True), 1, 0),
+        (f"seed table k={SEED_K}", pats, lens, dict(seed_table=table),
+         SEED_K, 32),
+        ("given interval (mms_continue)", pats, lens,
+         dict(resolve_n=True, start=sp, end=ep), 0, 8),
+        ("C[c0], 30-mers", kmers, klens, {}, 1, 0),
+    ]
+    records = {}
+    for name, p, ln, kw, n0, init_bytes in cases:
         got = search.search_lanes(fmi, p, ln, **kw)
-        want = search.backward_search_plain(fmi, p, ln, **kw)
-        torch.cuda.synchronize()
-        same, err = _fields_equal(got, want)
-        require(same, f"K3 differs from its plain version ({name}): max "
-                      f"|d| {err}")
+        want, plain_ms = _event_ms(
+            lambda: search.backward_search_plain(fmi, p, ln, **kw))
+        err = _max_abs_diff(got.values(), want.values())
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f"K3 differs from its plain version ({name}): max |d| {err}")
+        records[name] = got
+        started = ep > sp if "start" in kw else got["nmatched"] >= n0
+        steps = int(_search_steps(got, n0, started).sum())
+        B = p.shape[0]
+        bound = bound_of(4 * p.numel() + (4 + init_bytes + 32) * B
+                         + _index_bytes(fmi, steps, 0, 0),
+                         SEARCH_STEP_OPS * steps)
         ms = cuda_ms(lambda: search.search_lanes(fmi, p, ln, **kw), 20)
-        plain_ms = cuda_ms(
-            lambda: search.backward_search_plain(fmi, p, ln, **kw), 2)
-        shape = f"B={p.shape[0]} L={p.shape[1]}"
-        rows.append(dict(kernel="backward_search", case=name, shape=shape,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
-        print(f"phase 7 backward_search {name} {shape}: bit-equal "
-              f"(tolerance 0, max |d| {err}), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms {tag}", flush=True)
+        report("backward_search", name, f"B={B} L={p.shape[1]}", err, ms,
+               plain_ms, bound, f", {steps} steps")
 
     idx = torch.from_numpy(np.concatenate([
         np.array([0, int(fmi.endloc), n]),
         rng.integers(0, n + 1, size=nrows)]).astype(np.int32)).to(dev)
     got = search.unc_sa(fmi, idx)
-    want = search.unc_sa_plain(fmi, idx)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    want, plain_ms = _event_ms(lambda: search.unc_sa_plain(fmi, idx))
+    err = _max_abs_diff([got], [want])
     require(torch.equal(got, want),
             f"K4 differs from its plain version: max |d| {err}")
     require(int(got[1]) == 0, "unc_sa(endloc) is not 0")
+    steps = _walk_steps(fmi, idx)
+    B = idx.shape[0]
+    bound = bound_of(8 * B + _index_bytes(fmi, 0, steps, B),
+                     WALK_STEP_OPS * steps)
     ms = cuda_ms(lambda: search.unc_sa(fmi, idx), 20)
-    plain_ms = cuda_ms(lambda: search.unc_sa_plain(fmi, idx), 2)
-    shape = f"B={idx.shape[0]}"
-    rows.append(dict(kernel="unc_sa", case="rows in [0, n]", shape=shape,
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
-    print(f"phase 7 unc_sa {shape} rows in [0, n] with 0, endloc, n: "
-          f"bit-equal (tolerance 0, max |d| {err}), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms {tag}", flush=True)
+    report("unc_sa", "rows in [0, n] with 0, endloc, n (a wrapper call, "
+           "flag read-back included)", f"B={B}", err, ms, plain_ms, bound,
+           f", {steps} steps")
+
+    # the fused anchor scan: mixed reads, and one chunk of search_reads
+    cstarts = rng.integers(0, len(codes_np) - 50, size=chunk)
+    creads = torch.from_numpy(
+        codes_np[np.add.outer(cstarts, np.arange(50))]).to(dev)
+    clens = torch.full((chunk,), 50, dtype=torch.int32, device=dev)
+    for name, p, ln, min_anchor in (
+            ("mixed reads", pats, lens, 20), ("mixed reads", pats, lens, 12),
+            ("a search_reads chunk, uint8", creads, clens, 20)):
+        wide = p.to(torch.int32)
+        for reverse in (False, True):
+            got = exact.anchor_scan(fmi, p, ln, min_anchor=min_anchor,
+                                    reverse=reverse)
+            flipped = exact._plain_reverse(wide, ln) if reverse else wide
+            want, plain_ms = _event_ms(lambda: exact.anchor_scan_plain(
+                fmi, flipped, ln, min_anchor=min_anchor))
+            unf, steps, wsteps, walks, trips, unf_ms = _anchor_scan_unfused(
+                fmi, flipped, ln, min_anchor)
+            err = max(_max_abs_diff(got, want), _max_abs_diff(got, unf))
+            case = (f"{name}, {'reversed' if reverse else 'forward'}, "
+                    f"min_anchor={min_anchor}")
+            require(all(torch.equal(a, b) and torch.equal(a, c)
+                        for a, b, c in zip(got, want, unf)),
+                    f"anchor_scan differs from its plain version or from "
+                    f"the unfused loop ({case}): max |d| {err}")
+            B = p.shape[0]
+            bound = bound_of(p.numel() * p.element_size() + (4 + 8) * B
+                             + _index_bytes(fmi, steps, wsteps, walks),
+                             SEARCH_STEP_OPS * steps + WALK_STEP_OPS * wsteps)
+            ms = cuda_ms(lambda: search.anchor_scan_kernel(
+                fmi, p, ln, min_anchor=min_anchor, reverse=reverse), 20)
+            report("anchor_scan", case, f"B={B} L={p.shape[1]}", err, ms,
+                   plain_ms, bound,
+                   f", {steps} search and {wsteps} walk steps; the unfused "
+                   f"loop of {trips} K3 launches and a K4 launch, its step "
+                   f"count included: {unf_ms:.4f} ms of wall")
+            rows[-1].update(unfused_wall_ms=unf_ms, trips=trips,
+                            reverse=reverse)
+
+    # the fused locate: the 30-mers, and the mixed reads whose walk starts
+    # on a real row (the others raise, in both versions)
+    for name, p, ln, rec, n0 in (
+            ("30-mers", kmers, klens, "C[c0], 30-mers", 1),
+            ("mixed reads", pats, lens, "C[c0]", 1),
+            ("mixed reads", pats, lens, f"seed table k={SEED_K}", SEED_K),
+            ("30-mers", kmers, klens, None, SEED_K)):
+        seeded = n0 == SEED_K
+        st = table if seeded else None
+        r = records[rec] if rec else search.search_lanes(fmi, p, ln,
+                                                         seed_table=st)
+        real = (((r["start"] >= 0) & (r["start"] <= n))
+                | (r["start"] == -2 ** 31))
+        p, ln = p[real].contiguous(), ln[real].contiguous()
+        got = search.locate(fmi, p, ln, seed_table=st)
+        want, plain_ms = _event_ms(
+            lambda: search.locate_plain(fmi, p, ln, seed_table=st))
+        err = _max_abs_diff([got], [want])
+        case = f"{name}, {'seeded k=%d' % SEED_K if seeded else 'plain'}"
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"locate differs from its plain version ({case}): max |d| "
+                f"{err}")
+        steps = int(_search_steps(r, n0, r["nmatched"] >= n0)[real].sum())
+        wsteps = _walk_steps(fmi, r["start"][real])
+        B = p.shape[0]
+        bound = bound_of(4 * p.numel() + (4 + 4 + 32 * seeded) * B
+                         + _index_bytes(fmi, steps, wsteps, B),
+                         SEARCH_STEP_OPS * steps + WALK_STEP_OPS * wsteps)
+        ms = cuda_ms(lambda: search.locate_kernel(fmi, p, ln, seed_table=st),
+                     20)
+        report("locate", case, f"B={B} L={p.shape[1]}", err, ms, plain_ms,
+               bound, f", {steps} search and {wsteps} walk steps")
 
     zeros = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device=dev)
-    before = search.UNC_LAUNCHES
-    try:
-        search.locate(zeros, np.array([[1]], np.int32),
-                      np.array([1], np.int32))
-    except RuntimeError as e:
-        require(search.UNC_LAUNCHES == before + 1,
-                "the bound was not raised by the K4 kernel")
-        print(f"phase 7 unc_sa step bound on the card: locate('C') on a "
-              f"64-base all-A genome raised: {e} {tag}", flush=True)
-    else:
-        raise SmokeFailure("locate from a row past the SA did not raise")
+    for what, match, fn in (
+            ("walk bound: locate('C')", "row 65", lambda: search.locate(
+                zeros, np.array([[1]], np.int32), np.array([1], np.int32))),
+            ("walk bound: anchor_scan('CNNN', min_anchor=3)", "row 65",
+             lambda: exact.anchor_scan(zeros, np.array([[1, 5, 5, 5]],
+                                                       np.int32), [4],
+                                       min_anchor=3)),
+            ("no-progress bound: anchor_scan('AC', min_anchor=0)",
+             "never end", lambda: exact.anchor_scan(
+                 zeros, np.array([[0, 1]], np.int32), [2], min_anchor=0))):
+        before = search.LOCATE_LAUNCHES + search.ANCHOR_LAUNCHES
+        try:
+            fn()
+        except RuntimeError as e:
+            require(match in str(e), f"{what} raised something else: {e}")
+            require(search.LOCATE_LAUNCHES + search.ANCHOR_LAUNCHES
+                    == before + 1, f"{what} was not raised by the kernel")
+            print(f"phase 7 {what} on a 64-base all-A genome raised on the "
+                  f"card: {e} {tag}", flush=True)
+        else:
+            raise SmokeFailure(f"{what} did not raise")
     return rows
 
 
@@ -469,19 +757,27 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
     """Phase 8: search_reads on unmutated reads cut from the genome."""
     import numpy as np
 
+    from bwt_tpu_torch.config import DEFAULT
     from bwt_tpu_torch.models import exact
     from bwt_tpu_torch.ops import search
 
     starts = rng.integers(0, len(codes_np) - read_len, size=nreads)
     reads = codes_np[np.add.outer(starts, np.arange(read_len))]
+    chunks = -(-nreads // DEFAULT.search_batch)
     exact.search_reads(fmi, reads[:4096])  # warm-up
-    search.BS_LAUNCHES = search.UNC_LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = exact.search_reads(fmi, reads)
-    dt = time.perf_counter() - t0
-    bs, unc = search.BS_LAUNCHES, search.UNC_LAUNCHES
-    require(bs > 0 and unc > 0,
-            f"search_reads did not launch K3 and K4: {bs}, {unc}")
+    walls = []
+    for _ in range(2):  # the first call at this size also pins its buffers
+        search.ANCHOR_LAUNCHES = search.BS_LAUNCHES = search.UNC_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = exact.search_reads(fmi, reads)
+        walls.append(time.perf_counter() - t0)
+        launches = (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
+                    search.UNC_LAUNCHES)
+        require(launches == (2 * chunks, 0, 0),
+                f"search_reads is not two anchor_scan launches a chunk: "
+                f"anchor_scan, K3, K4 launches {launches} for {chunks} "
+                f"chunks")
+    dt = walls[1]
     require(bool((res["fwd_matches"] >= 1).all()),
             "a forward read found no anchor")
     fp = res["fwd_pos"]
@@ -495,13 +791,68 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
                 f"search_reads {k} differs between the kernels and the "
                 f"plain versions on the {subset}-read subset")
     paired = int(res["paired"].sum())
-    print(f"phase 8 search_reads {nreads} x {read_len} bp: all forward reads "
-          f"anchored at their origin, {paired} paired, "
-          f"{nreads / dt:.1f} reads/s ({dt:.3f} s), K3 launches {bs}, K4 "
-          f"launches {unc}; {subset}-read subset equal through the plain "
-          f"versions on the CPU ({plain_s:.3f} s) {tag}", flush=True)
-    return dict(n=nreads, s=dt, per_s=nreads / dt, bs_launches=bs,
-                unc_launches=unc, paired=paired)
+    print(f"phase 8 search_reads {nreads} x {read_len} bp ({reads.dtype} "
+          f"codes): all forward reads anchored at their origin, {paired} "
+          f"paired, {nreads / dt:.1f} reads/s ({dt:.4f} s; the first call at "
+          f"this size, which also pins its buffers, {walls[0]:.4f} s), "
+          f"anchor_scan launches {launches[0]} in {chunks} chunks a call, K3 "
+          f"and K4 launches 0; "
+          f"{subset}-read subset equal through the plain versions on the CPU "
+          f"({plain_s:.3f} s) {tag}", flush=True)
+    return dict(n=nreads, s=dt, per_s=nreads / dt, first_s=walls[0],
+                launches=launches[0], chunks=chunks, paired=paired), reads
+
+
+def phase_profiles(fmi, table, kmers, reads, report, tag):
+    """Phase 9: one torch.profiler window over each exact-search path, after
+    every untraced measurement (the profiler, once started, slows every
+    later launch of the process).  Adds to ``report`` in place."""
+    from bwt_tpu_torch.models import exact
+    from bwt_tpu_torch.ops import search
+
+    pats, lens = kmers
+    for key, st in (("plain", None), ("seeded", table)):
+        prof = device_profile(
+            lambda: search.locate(fmi, pats, lens, seed_table=st))
+        report["locate"][key].update(
+            traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
+            device_ops=prof["ops"])
+        names = ", ".join(f"{n} x {k[:40]}"
+                          for k, (n, _) in prof["by_name"].items())
+        print(f"phase 9 profile of locate {pats.shape[0]} x "
+              f"{pats.shape[1]}-mers ({key}): device busy "
+              f"{prof['busy_ms']:.4f} ms in {prof['ops']} device ops "
+              f"({names}), {prof['wall_s'] * 1e3:.4f} ms traced wall {tag}",
+              flush=True)
+
+    # search_reads: the host's encode alone, then a profiled run
+    t0 = time.perf_counter()
+    exact._encode_batch(reads, narrow=True)
+    encode_s = time.perf_counter() - t0
+    prof = device_profile(lambda: exact.search_reads(fmi, reads))
+    split = dict(kernels=0.0, upload=0.0, download=0.0, other=0.0)
+    for name, (_, ms) in prof["by_name"].items():
+        kind = ("kernels" if "anchor_scan_kernel" in name
+                else "upload" if "Memcpy HtoD" in name
+                else "download" if "Memcpy DtoH" in name else "other")
+        split[kind] += ms
+    wall_ms = prof["wall_s"] * 1e3
+    print(f"phase 9 profile of search_reads {reads.shape[0]} x "
+          f"{reads.shape[1]} bp, {wall_ms:.3f} ms traced wall: host encode "
+          f"{encode_s * 1e3:.3f} ms "
+          f"({encode_s * 1e5 / wall_ms:.2f} %), upload {split['upload']:.3f} "
+          f"ms ({100 * split['upload'] / wall_ms:.2f} %), anchor_scan "
+          f"kernels {split['kernels']:.3f} ms "
+          f"({100 * split['kernels'] / wall_ms:.2f} %), download "
+          f"{split['download']:.3f} ms "
+          f"({100 * split['download'] / wall_ms:.2f} %), other device ops "
+          f"{split['other']:.3f} ms; device busy {prof['busy_ms']:.3f} ms "
+          f"({100 * prof['busy_ms'] / wall_ms:.2f} %) in {prof['ops']} "
+          f"device ops; the rest is the host staging chunks and gathering "
+          f"results {tag}", flush=True)
+    report["search_reads"].update(
+        encode_s=encode_s, traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
+        device_ops=prof["ops"], split_ms=split)
 
 
 def main(argv=None) -> int:
@@ -529,8 +880,18 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     lib = _kernels.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    regs = re.findall(r"Used (\d+) registers", _kernels.LAST_REPORT)
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                        _kernels.LAST_REPORT)
+    require(len(regs) >= 7 and len(frames) == len(regs),
+            "the compiler's report does not list every kernel")
+    require(all(f == ("0", "0") for f in frames),
+            f"a kernel keeps values in local memory (stack frame, spill "
+            f"stores): {frames}")
     print(f"phase 1 nvcc build of {len(_kernels.sources())} source(s) -> "
-          f"{lib.relative_to(ROOT)} in {time.perf_counter() - t0:.3f} s "
+          f"{lib.relative_to(ROOT)} in {build_s:.3f} s; {len(regs)} kernels, "
+          f"registers {sorted(map(int, regs))}, no stack frame, no spills "
           f"{tag}", flush=True)
 
     rng = np.random.default_rng(args.seed)
@@ -538,58 +899,61 @@ def main(argv=None) -> int:
     report = dict(card=smi, dp=dp_rows)
     codes = rng.integers(0, 4, size=1 << 25).astype(np.uint8)
     fmi, report["build"] = phase_build(codes, dev, tag)
-    report["locate"], table = phase_locate(fmi, codes, rng, 1 << 20, tag)
+    report["locate"], table, kmers = phase_locate(fmi, codes, rng, 1 << 20,
+                                                  tag)
     report["align"] = phase_align(fmi, codes, rng, 4096, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
     report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
-    report["search_reads"] = phase_search_reads(fmi, codes, rng, 1 << 20,
-                                                tag)
-    del fmi, table
+    report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
+                                                       1 << 20, tag)
+    phase_profiles(fmi, table, kmers, reads, report, tag)
+    del fmi, table, kmers
     torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
 
-    at = next(r for r in dp_rows if (r["B"], r["L1"], r["L2"]) == (1024, 32, 32))
-    loc = report["locate"]
-    bs_rows = [r for r in report["kernels"] if r["kernel"] == "backward_search"]
-    bs_at = next(r for r in bs_rows if r["case"] == "C[c0], 30-mers")
-    unc_at = next(r for r in report["kernels"] if r["kernel"] == "unc_sa")
+    def row_of(kernel, case=None, **match):
+        pool = dp_rows if kernel == "dp_wavefront" else [
+            r for r in report["kernels"] if r["kernel"] == kernel]
+        return next(r for r in pool if (case is None or r["case"] == case)
+                    and all(r[k] == v for k, v in match.items()))
+
+    def worst(kernel):
+        pool = dp_rows if kernel == "dp_wavefront" else [
+            r for r in report["kernels"] if r["kernel"] == kernel]
+        return max(r["max_abs_err"] for r in pool)
+
+    loc, align, sr = report["locate"], report["align"], report["search_reads"]
+    entries = [
+        ("dp_wavefront", "bwt_tpu_torch/csrc/dp_wavefront.cu",
+         "bwt_tpu/ops/pallas_align.py:44", align["launches"],
+         row_of("dp_wavefront", B=1024, L1=32, L2=32, scoring="default"),
+         "B=1024 L1=32 L2=32"),
+        ("backward_search", "bwt_tpu_torch/csrc/backward_search.cu",
+         "tools/probe_pallas_lf.py:103",
+         loc["count_matches"]["bs_launches"] + align["bs_launches"],
+         row_of("backward_search", "C[c0], 30-mers"), None),
+        ("unc_sa", "bwt_tpu_torch/csrc/unc_sa.cu",
+         "bwt_tpu/ops/search.py:359", align["unc_launches"],
+         row_of("unc_sa"), None),
+        ("anchor_scan", "bwt_tpu_torch/csrc/anchor_scan.cu",
+         "bwt_tpu/models/exact.py:35", sr["launches"],
+         row_of("anchor_scan", "a search_reads chunk, uint8, reversed, "
+                               "min_anchor=20"), None),
+        ("locate", "bwt_tpu_torch/csrc/locate.cu",
+         "bwt_tpu/ops/search.py:443",
+         loc["plain"]["launches"] + loc["seeded"]["launches"],
+         row_of("locate", "30-mers, plain"), None),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "dp_wavefront",
-        "route": "cuda",
-        "source": "bwt_tpu_torch/csrc/dp_wavefront.cu",
-        "replaces": "bwt_tpu/ops/pallas_align.py:44",
-        "launches": report["align"]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in dp_rows),
-        "ms": at["ms"],
-        "plain_ms": at["plain_ms"],
-        "shape": "B=1024 L1=32 L2=32",
-    }, {
-        "name": "backward_search",
-        "route": "cuda",
-        "source": "bwt_tpu_torch/csrc/backward_search.cu",
-        "replaces": "tools/probe_pallas_lf.py:103",
-        "launches": (loc["plain"]["bs_launches"] + loc["seeded"]["bs_launches"]
-                     + report["search_reads"]["bs_launches"]),
-        "max_abs_err": max(r["max_abs_err"] for r in bs_rows),
-        "ms": bs_at["ms"],
-        "plain_ms": bs_at["plain_ms"],
-        "shape": bs_at["shape"],
-    }, {
-        "name": "unc_sa",
-        "route": "cuda",
-        "source": "bwt_tpu_torch/csrc/unc_sa.cu",
-        "replaces": "bwt_tpu/ops/search.py:359",
-        "launches": (loc["plain"]["unc_launches"]
-                     + loc["seeded"]["unc_launches"]
-                     + report["align"]["unc_launches"]
-                     + report["search_reads"]["unc_launches"]),
-        "max_abs_err": unc_at["max_abs_err"],
-        "ms": unc_at["ms"],
-        "plain_ms": unc_at["plain_ms"],
-        "shape": unc_at["shape"],
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": worst(name), "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": shape or row["shape"],
+    } for name, source, replaces, launches, row, shape in entries]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """bwt_tpu_torch on an NVIDIA card: the CUDA kernels (DP fill, backward
-search, SA walk) against their plain versions, and the port's main paths
+search, SA walk, the fused locate and anchor scan) against their plain
+versions, and the port's main paths
 on the card against the same paths on the CPU (which the other
 test_torch_*.py files hold against bwt_tpu).
 
@@ -13,12 +14,15 @@ installed:
 import sys
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import bwt_tpu_torch
 from bwt_tpu_torch import codec
+from bwt_tpu_torch.config import DEFAULT
 from bwt_tpu_torch.models import aligner, exact
 from bwt_tpu_torch.ops import dp_wavefront, search
 
@@ -160,6 +164,43 @@ def test_backward_search_kernel_matches_plain(search_env, mode):
         assert torch.equal(got[k], want[k]), k
 
 
+@pytest.mark.parametrize("shape", [(1, 3), (3, 5), (67, 30)])
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_kernels_read_an_unaligned_array(search_env, shift, shape):
+    """An int32 read array that starts ``shift`` elements past a 16-byte
+    boundary (a view into a larger buffer): its first and last 16-byte
+    block reach outside it and are read element by element; the three
+    kernels that take reads give what their plain versions give."""
+    codes, fmi, rng = search_env
+    B, L = shape
+    pats_np, lens_np = mixed_reads(rng, codes, B, L=L)
+    pats_np %= 4  # every walk starts on a real row
+    buf = torch.full((B * L + 8,), 3, dtype=torch.int32, device="cuda")
+    pats = buf[shift:shift + B * L].view(B, L)
+    pats.copy_(torch.from_numpy(pats_np))
+    assert pats.data_ptr() % 16 == 4 * shift and pats.is_contiguous()
+    lens = torch.from_numpy(lens_np).cuda()
+    got = search.search_lanes(fmi, pats, lens)
+    want = search.backward_search_plain(fmi, pats, lens)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    calls = [(lambda: [search.locate(fmi, pats, lens)],
+              lambda: [search.locate_plain(fmi, pats, lens)])]
+    for reverse in (False, True):
+        flipped = exact._plain_reverse(pats, lens) if reverse else pats
+        calls.append((lambda reverse=reverse: exact.anchor_scan(
+                          fmi, pats, lens, min_anchor=2, reverse=reverse),
+                      lambda flipped=flipped: exact.anchor_scan_plain(
+                          fmi, flipped, lens, min_anchor=2)))
+    for kernel, plain in calls:  # on the all-A genome both may raise
+        got, want = _outcome(kernel), _outcome(plain)
+        if isinstance(want, list):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        else:
+            assert got is want
+
+
 def test_unc_sa_kernel_matches_plain(search_env):
     codes, fmi, _ = search_env
     idx = torch.arange(fmi.length + 1, dtype=torch.int32, device="cuda")
@@ -172,13 +213,151 @@ def test_unc_sa_kernel_matches_plain(search_env):
 
 
 def test_unc_sa_bound_raises_on_card():
+    """A walk from row n + 1 stops at its bound and raises, from K4 and
+    from the locate kernel (which walks every lane's start)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device="cuda")
-    launches = search.UNC_LAUNCHES
+    launches = search.UNC_LAUNCHES, search.LOCATE_LAUNCHES
     with pytest.raises(RuntimeError, match="row 65"):
-        search.locate(fmi, np.array([[1]], np.int32), np.array([1], np.int32))
-    assert search.UNC_LAUNCHES == launches + 1
+        search.unc_sa(fmi, [0, 65, 3])
+    with pytest.raises(RuntimeError, match="row 65"):
+        search.locate(fmi, np.array([[0], [1]], np.int32),
+                      np.array([1, 1], np.int32))
+    assert (search.UNC_LAUNCHES, search.LOCATE_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
+
+
+def _outcome(fn):
+    """What a call gave: its tensors, or the type of what it raised."""
+    try:
+        out = fn()
+    except RuntimeError as e:
+        return type(e)
+    torch.cuda.synchronize()
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.parametrize("min_anchor", [20, 12])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_anchor_scan_kernel_matches_plain(search_env, reverse, min_anchor):
+    """The fused anchor scan bit-equal to its plain version on mixed reads,
+    both directions, for int32 and one-byte codes."""
+    codes, fmi, rng = search_env
+    pats_np, lens_np = mixed_reads(rng, codes, 2051, L=100)
+    pats = torch.from_numpy(pats_np).cuda()
+    lens = torch.from_numpy(lens_np).cuda()
+    launches = search.ANCHOR_LAUNCHES, search.BS_LAUNCHES, search.UNC_LAUNCHES
+    got = _outcome(lambda: exact.anchor_scan(fmi, pats, lens, reverse=reverse,
+                                             min_anchor=min_anchor))
+    assert (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
+            search.UNC_LAUNCHES) == (launches[0] + 1, *launches[1:])
+    flipped = exact._plain_reverse(pats, lens) if reverse else pats
+    want = _outcome(lambda: exact.anchor_scan_plain(fmi, flipped, lens,
+                                                    min_anchor=min_anchor))
+    assert isinstance(want, list)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[0] > 0).any() and (want[0] == 0).any()
+    # one byte a code: the odd codes read as a cast reads them
+    for dt in (torch.int8, torch.uint8):
+        narrow = pats.to(dt)
+        got = _outcome(lambda: exact.anchor_scan(
+            fmi, narrow, lens, reverse=reverse, min_anchor=min_anchor))
+        wide = narrow.to(torch.int32)
+        flipped = exact._plain_reverse(wide, lens) if reverse else wide
+        want = _outcome(lambda: exact.anchor_scan_plain(
+            fmi, flipped, lens, min_anchor=min_anchor))
+        assert isinstance(want, list)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["plain", "seeded"])
+def test_locate_kernel_matches_plain(search_env, seeded):
+    """The fused locate bit-equal to its plain version on the mixed reads
+    whose walk starts on a real row, in one launch and without K3 or K4;
+    with the other reads it raises as the plain version does."""
+    codes, fmi, rng = search_env
+    pats_np, lens_np = mixed_reads(rng, codes, 4099, L=100)
+    pats = torch.from_numpy(pats_np).cuda()
+    lens = torch.from_numpy(lens_np).cuda()
+    table = search.build_seed_table(fmi, k=4) if seeded else None
+    start = search.backward_search_plain(fmi, pats, lens,
+                                         seed_table=table)["start"]
+    real = ((start >= 0) & (start <= fmi.length)) | (start == -2 ** 31)
+    assert bool(real.any())
+    launches = search.LOCATE_LAUNCHES, search.BS_LAUNCHES, search.UNC_LAUNCHES
+    got = search.locate(fmi, pats[real], lens[real], seed_table=table)
+    assert (search.LOCATE_LAUNCHES, search.BS_LAUNCHES,
+            search.UNC_LAUNCHES) == (launches[0] + 1, *launches[1:])
+    want = search.locate_plain(fmi, pats[real], lens[real], seed_table=table)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert bool((want == -1).any()) and bool((want >= 0).any())
+    if not bool(real.all()):
+        got = _outcome(lambda: [search.locate(fmi, pats, lens,
+                                              seed_table=table)])
+        want = _outcome(lambda: [search.locate_plain(fmi, pats, lens,
+                                                     seed_table=table)])
+        if isinstance(want, list):
+            assert torch.equal(got[0], want[0])
+        else:
+            assert got is want
+
+
+def test_anchor_scan_bounds_raise_on_card(card):
+    """The hunt that makes no progress and the walk from a row past the
+    suffix array raise on the card, from the kernel's flag."""
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device=card)
+    launches = search.ANCHOR_LAUNCHES
+    pat = np.array([[0, 0, 0], [0, 1, 0]], np.int32)
+    for reverse in (False, True):
+        with pytest.raises(RuntimeError, match="read 1 .* never end"):
+            exact.anchor_scan(fmi, pat, [3, 2 + reverse], min_anchor=0,
+                              reverse=reverse)
+    with pytest.raises(RuntimeError, match="never end"):
+        exact.search_reads(fmi, ["AAAA", "AAAC"], min_anchor=-1)
+    with pytest.raises(RuntimeError, match="row 65"):
+        exact.anchor_scan(fmi, np.array([[0, 0, 0, 0], [1, 5, 5, 5]],
+                                        np.int32), [4, 4], min_anchor=3)
+    with pytest.raises(RuntimeError, match="row 65"):
+        exact.search_reads(fmi, ["AAAA", "CNNN"], min_anchor=3)
+    assert search.ANCHOR_LAUNCHES == launches + 7
+    # min_anchor = 0 ends when every trip consumes something
+    pat = np.array([[0, 0, 0, 0, 0, 0], [0, 5, 0, 5, 5, 0],
+                    [5, 5, 5, 5, 5, 5]], np.int32)
+    lens = np.array([6, 5, 6], np.int32)
+    for a, b in zip(exact.anchor_scan(fmi, pat, lens, min_anchor=0),
+                    exact.anchor_scan(fmi.to("cpu"), pat, lens, min_anchor=0)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_search_reads_chunks_on_card_match_cpu(card):
+    """search_reads on a uint8 code array in several chunks (the last one
+    short), two launches a chunk, equal to the CPU run; strings and int32
+    codes give the same."""
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, 20000).astype(np.uint8)
+    codes[7000:7060] = codes[6700:6760][::-1]  # a read that pairs
+    on_card = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device=card)
+    starts = np.concatenate([[6700], rng.integers(0, 19900, 1100)])
+    reads = codes[np.add.outer(starts, np.arange(60))]
+    reads[3, 50:] = 5
+    reads[4] = rng.integers(0, 4, 60)
+    cfg = dataclasses.replace(DEFAULT, search_batch=256)
+    launches = search.ANCHOR_LAUNCHES, search.BS_LAUNCHES, search.UNC_LAUNCHES
+    got = exact.search_reads(on_card, reads, config=cfg)
+    assert (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
+            search.UNC_LAUNCHES) == (launches[0] + 2 * 5, *launches[1:])
+    want = exact.search_reads(on_card.to("cpu"), reads, config=cfg)
+    texts = [codec.decode(r) for r in reads]
+    for other in (exact.search_reads(on_card, texts, config=cfg),
+                  exact.search_reads(on_card, reads.astype(np.int32))):
+        for k in want:
+            assert np.array_equal(other[k], want[k]), k
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    assert got["paired"][0] and (got["fwd_matches"][5:] >= 1).all()
 
 
 def test_exact_path_on_card_matches_cpu(card):
@@ -191,9 +370,10 @@ def test_exact_path_on_card_matches_cpu(card):
     reads = [g[s:s + int(ln)] for s, ln in
              zip(rng.integers(0, 19800, 300), rng.integers(20, 120, 300))]
     reads += ["N" * 30, "ACGT" * 10, g[500:560][::-1]]
-    launches = search.BS_LAUNCHES
+    launches = search.ANCHOR_LAUNCHES, search.BS_LAUNCHES
     got = exact.search_reads(on_card, reads)
-    assert search.BS_LAUNCHES > launches
+    assert (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES) == (
+        launches[0] + 2, launches[1])
     want = exact.search_reads(on_cpu, reads)
     for k in want:
         assert np.array_equal(got[k], want[k]), k

@@ -1,18 +1,22 @@
 """The port's exact-search model (models/exact.py) held bit-equal to
 bwt_tpu.models.exact on the CPU: anchor_scan on the anchor-loop cases (N
-runs, junk reads, first-trip anchors), search_reads on uniform and ragged
-batches with paired reads, and format_ref_output byte for byte."""
+runs, junk reads, first-trip anchors), forward and with reverse=True,
+search_reads on uniform and ragged batches with paired reads and on a
+uint8 code array, format_ref_output byte for byte, and the port's own
+bounds where bwt_tpu's hunt never ends."""
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import bwt_tpu
 from bwt_tpu import codec as jcodec
 from bwt_tpu.config import DEFAULT as JDEFAULT
 from bwt_tpu.models import exact as jexact
 
+import bwt_tpu_torch
 from bwt_tpu_torch.config import DEFAULT as TDEFAULT
 from bwt_tpu_torch.models import exact as texact
 
@@ -70,6 +74,106 @@ def test_anchor_scan_matches_jax(seed, min_anchor):
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), np.asarray(b))
     assert (np.asarray(want[0]) > 0).any() and (np.asarray(want[0]) == 0).any()
+
+
+def _host_reverse(pat, lens):
+    """bwt_tpu.models.exact.search_reads' flip: pattern[:len] reversed."""
+    rev = np.zeros_like(pat)
+    for b in range(pat.shape[0]):
+        rev[b, :lens[b]] = pat[b, :lens[b]][::-1]
+    return rev
+
+
+@pytest.mark.parametrize("seed,min_anchor", [(0, 20), (1, 20), (2, 12)])
+def test_anchor_scan_reverse_matches_jax(seed, min_anchor):
+    """reverse=True hunts the plain-reversed read: equal to bwt_tpu's scan
+    of the host-reversed patterns, for int32 and one-byte codes."""
+    rng = np.random.default_rng(seed)
+    codes = jcodec.encode_genome(jcodec.random_genome(600, seed=seed))
+    jfmi = bwt_tpu.build_index(codes)
+    pat = _host_reverse(_anchor_reads(rng, codes),
+                        np.full((24,), 40, np.int32))  # anchors when flipped
+    lens = np.full((len(pat),), 40, np.int32)
+    lens[::5] = rng.integers(0, 41, size=len(lens[::5]))  # ragged prefixes
+    pat = np.where(np.arange(40)[None, :] < lens[:, None], pat, 0)
+    want = jexact.anchor_scan(jfmi, _host_reverse(pat, lens), lens,
+                              min_anchor=min_anchor)
+    tfmi = to_port(jfmi)
+    for codes_in in (pat, pat.astype(np.uint8), pat.astype(np.int8)):
+        got = texact.anchor_scan(tfmi, codes_in, lens, min_anchor=min_anchor,
+                                 reverse=True)
+        for a, b in zip(got, want):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    assert (np.asarray(want[0]) > 0).any() and (np.asarray(want[0]) == 0).any()
+    assert np.array_equal(
+        texact._plain_reverse(torch.from_numpy(pat),
+                              torch.from_numpy(lens)).numpy(),
+        _host_reverse(pat, lens))
+
+
+def test_anchor_scan_min_anchor_zero_matches_jax():
+    """min_anchor = 0 ends when every trip consumes something: reads over
+    the genome's own symbols, N's included (an all-N anchor takes the
+    prefix length below zero)."""
+    codes = np.zeros(64, np.uint8)
+    jfmi = bwt_tpu.build_index(codes)
+    pat = np.array([[0, 0, 0, 0, 0, 0], [0, 5, 0, 5, 5, 0], [5, 5, 5, 5, 5, 5],
+                    [0, 0, 5, 5, 0, 0]], np.int32)
+    lens = np.array([6, 5, 6, 0], np.int32)
+    want = jexact.anchor_scan(jfmi, pat, lens, min_anchor=0)
+    got = texact.anchor_scan(to_port(jfmi), pat, lens, min_anchor=0)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_anchor_scan_no_progress_raises():
+    """An anchor that consumes nothing repeats forever in bwt_tpu's
+    while_loop (min_anchor <= 0 and a last character absent from the
+    genome: matched 0, skipped 0); the port raises."""
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device="cpu")
+    pat = np.array([[0, 0, 0], [0, 1, 0]], np.int32)
+    for reverse in (False, True):
+        with pytest.raises(RuntimeError, match="read 1 .* never end"):
+            texact.anchor_scan(fmi, pat, [3, 2 + reverse], min_anchor=0,
+                               reverse=reverse)
+    with pytest.raises(RuntimeError, match="never end"):
+        texact.search_reads(fmi, ["AAAC"], min_anchor=-1)
+
+
+def test_anchor_scan_walk_past_the_sa_raises():
+    """An anchor made of trailing N's over an absent last character records
+    the row C[c] = n + 1, past the suffix array: the walk's bound raises."""
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device="cpu")
+    pat = np.array([[1, 5, 5, 5]], np.int32)
+    with pytest.raises(RuntimeError, match="row 65"):
+        texact.anchor_scan(fmi, pat, [4], min_anchor=3)
+
+
+def test_search_reads_uint8_code_array_matches_jax(genome):
+    """A 2-D uint8 code array goes down one byte a code (no int32 copy on
+    the host) and gives bwt_tpu's result on the same reads."""
+    codes, jfmi, tfmi = genome
+    rng = np.random.default_rng(21)
+    starts = np.concatenate([np.array(PLANTED), rng.integers(0, 4900, 40)])
+    reads = codes[np.add.outer(starts, np.arange(60))]
+    reads[5, 7] = 5
+    reads[6, -3:] = 5
+    reads[7] = rng.integers(0, 4, 60)
+    assert reads.dtype == np.uint8
+    pat, lens = texact._encode_batch(reads, narrow=True)
+    assert pat is reads and pat.dtype == np.uint8
+    assert texact._encode_batch(reads)[0].dtype == np.int32
+    ragged = texact._encode_batch(["ACGT", "AC"], narrow=True)[0]
+    assert ragged.dtype == np.uint8
+    jcfg = dataclasses.replace(JDEFAULT, search_batch=16)
+    tcfg = dataclasses.replace(TDEFAULT, search_batch=16)
+    want = jexact.search_reads(jfmi, reads, config=jcfg)
+    got = texact.search_reads(tfmi, reads, config=tcfg)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k]), k
+    assert got["paired"][:len(PLANTED)].all()
 
 
 def _batch(codes, rng, ragged: bool):

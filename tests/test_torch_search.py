@@ -280,6 +280,33 @@ def test_unc_sa_bound_raises():
         range(65))
 
 
+@pytest.mark.parametrize("seeded", [False, True], ids=["plain", "seeded"])
+def test_locate_plain_matches_jax(env, seeded):
+    """locate_plain (the plain version of the locate kernel), unseeded and
+    with a k = 4 seed table, on absent patterns, N-bearing, 1-char and
+    whole-genome-length reads, over the lanes whose walk starts on a real
+    row; locate on a CPU index is that plain version."""
+    g, jfmi, tfmi, rng = env
+    pats, lens = _patterns(g, rng)
+    if seeded:
+        # the table's contract: length >= k (bwt_tpu reads it like jnp.take
+        # outside that, which test_seed_key_out_of_table covers)
+        keep = lens >= 4
+        pats, lens = pats[keep], lens[keep]
+    jt = jsearch.build_seed_table(jfmi, k=4) if seeded else None
+    tt = tsearch.build_seed_table(tfmi, k=4) if seeded else None
+    start = np.asarray(jsearch.loc_search(jfmi, pats, lens, seed_table=jt)[0])
+    real = (start >= 0) & (start <= len(g))
+    assert real.sum() >= len(real) // 2
+    want = jsearch.locate(jfmi, pats[real], lens[real], seed_table=jt)
+    got = tsearch.locate_plain(tfmi, pats[real], lens[real], seed_table=tt)
+    _eq(got, want)
+    assert (np.asarray(want) == -1).any() or len(g) < 100
+    launches = tsearch.LOCATE_LAUNCHES
+    _eq(tsearch.locate(tfmi, pats[real], lens[real], seed_table=tt), want)
+    assert tsearch.LOCATE_LAUNCHES == launches
+
+
 def test_wrappers_dispatch_by_device(env):
     """A CPU index runs the plain versions and launches nothing; another
     device type raises instead of falling back."""
@@ -298,3 +325,5 @@ def test_wrappers_dispatch_by_device(env):
         tsearch.backward_search(meta, pats, lens)
     with pytest.raises(ValueError, match="unsupported device"):
         tsearch.unc_sa(meta, [1])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsearch.locate(meta, pats, lens)
