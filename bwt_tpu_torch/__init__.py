@@ -3,8 +3,8 @@
 The PyTorch port of ``bwt_tpu``: index build (prefix-doubling suffix
 sort, BWT, fused rank buckets), batched FM-index queries (backward
 search, locate, MMS) and the ``single_align`` seed-and-extend aligner,
-whose DP stitches run in a hand-written CUDA kernel on the card
-(``csrc/dp_wavefront.cu``).  Results are bit-equal to ``bwt_tpu``'s.
+whose DP stitches run as one launch of a hand-written CUDA kernel on the
+card (``csrc/dp_stitch.cu``).  Results are bit-equal to ``bwt_tpu``'s.
 
 Quick start::
 

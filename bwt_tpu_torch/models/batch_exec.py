@@ -7,7 +7,8 @@ one pending request per live generator and runs them together: the
 FM-index opcodes as one fused service call (:func:`_service_core`: one
 shared lockstep LF loop under per-lane masks, plus the unc_sa walk, the
 inverse-SA window and C[c]+rank adjuncts), the DP stitches as one
-wavefront fill and backtrack per padded shape (:func:`_dp_core`).  Per-read
+wavefront fill and backtrack per padded shape
+(:func:`bwt_tpu_torch.ops.dp_wavefront.dp_stitch`).  Per-read
 request sequences, and so the outputs, are those of running each read
 alone.  Lanes pad to a power of two per round.
 
@@ -57,12 +58,11 @@ OP_NONE, OP_MMS, OP_CONT, OP_UNC, OP_CRANK, OP_MEXT = 0, 1, 2, 4, 5, 6
 _OPC = {"mms": OP_MMS, "mms_continue": OP_CONT, "unc_sa": OP_UNC,
         "crank": OP_CRANK, "mms_ext": OP_MEXT}
 
-_NEG = -(1 << 30)
 _I32_MAX = 0x7FFFFFFF
 
 # backtrack runs per DP job returned compactly; jobs with more runs are
 # decoded from the raw op row (_ops_to_runs)
-_RLE_R = 40
+_RLE_R = dp_wavefront.RLE_R
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -78,47 +78,6 @@ def dp_shape(rlen, glen):
     """Padded shape of one DP job: each dim a multiple of 32, floor 32."""
     return (max(32, -(-int(rlen) // 32) * 32),
             max(32, -(-int(glen) // 32) * 32))
-
-
-def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Index of the first maximum along ``dim`` (the strict '>' scan)."""
-    n = x.shape[dim]
-    shape = [1] * x.dim()
-    shape[dim] = n
-    ar = torch.arange(n, device=x.device).reshape(shape)
-    is_max = x == x.amax(dim=dim, keepdim=True)
-    return torch.where(is_max, ar, n).amin(dim=dim)
-
-
-def _rle_device(ops: torch.Tensor):
-    """Run-length encode each backtrack row (walk order; op 3 = none).
-
-    Returns (nrun (B,), vals (B, _RLE_R), counts (B, _RLE_R)), int32.
-    Rows with more than _RLE_R runs have garbage tails; rows whose run
-    count or a run length would pass 32000 report nrun = _RLE_R + 1, so
-    the caller decodes them from the raw ops."""
-    B, S = ops.shape
-    dev = ops.device
-    live = ops != 3
-    prevop = torch.cat([torch.full((B, 1), -1, dtype=ops.dtype, device=dev),
-                        ops[:, :-1]], dim=1)
-    prevlive = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                          live[:, :-1]], dim=1)
-    starts = live & (~prevlive | (ops != prevop))
-    rid = torch.cumsum(starts.to(torch.int64), dim=1)  # 1-based run id
-    nrun = rid[:, -1]
-    keep = rid <= _RLE_R
-    counts = torch.zeros((B, _RLE_R + 1), dtype=torch.int64, device=dev)
-    counts.scatter_add_(1, torch.where(live & keep, rid, 0),
-                        live.to(torch.int64))
-    vals = torch.zeros_like(counts)
-    vals.scatter_add_(1, torch.where(starts & keep, rid, 0),
-                      torch.where(starts, ops, 0).to(torch.int64))
-    counts, vals = counts[:, 1:], vals[:, 1:]
-    over = (nrun > 32000) | (counts.amax(dim=1) > 32000)
-    nrun = torch.where(over, _RLE_R + 1, nrun.clamp(max=32000))
-    return (nrun.to(torch.int32), vals.to(torch.int32),
-            counts.to(torch.int32))
 
 
 # --------------------------------------------------------------------------
@@ -259,63 +218,24 @@ _OP_COLS = {
 # --------------------------------------------------------------------------
 
 
+def _stitch_fn(plain: bool):
+    return dp_wavefront.dp_stitch_plain if plain else dp_wavefront.dp_stitch
+
+
 def _dp_core(bank, genome, row, roff, rlen, rrev, gstart, glen, grev,
              want_nw, *, L1: int, L2: int, scoring=None, plain=False):
-    """Batched NW/SW stitch on (B,) int32 job fields: gather the read
-    and genome slices (both reversed for the head alignment,
-    single_align.c:256-272), fill the DP by anti-diagonals
-    (:func:`~bwt_tpu_torch.ops.dp_wavefront.dp_fill_wavefront`; its plain
-    twin when ``plain``), take the nw endpoint (first max of the read's
-    last row, smw.c:65-70), walk the pointers back one op per diagonal
-    and run-length encode the ops.  Returns (maxloc, i_resid, j_resid,
-    nrun, vals, counts, ops); the caller appends the I/D residuals
-    (smw.c:99-104)."""
-    B = row.shape[0]
-    Lb = bank.shape[1]
-    dev = row.device
-    k1 = torch.arange(L1, dtype=torch.int32, device=dev)[None, :]
-    ridx = torch.where(rrev[:, None] == 1,
-                       roff[:, None] + rlen[:, None] - 1 - k1,
-                       roff[:, None] + k1)
-    reads = bank[row.long()].gather(1, ridx.clamp(0, Lb - 1).long())
-    reads = torch.where(k1 < rlen[:, None], reads, 0).contiguous()
-    k2 = torch.arange(L2, dtype=torch.int32, device=dev)[None, :]
-    gidx = torch.where(grev[:, None] == 1,
-                       gstart[:, None] + glen[:, None] - 1 - k2,
-                       gstart[:, None] + k2)
-    genomes = genome[gidx.clamp(0, genome.shape[0] - 1).long()]
-    genomes = torch.where(k2 < glen[:, None], genomes, 0).contiguous()
-
-    fill = (dp_wavefront.dp_fill_wavefront_plain if plain
-            else dp_wavefront.dp_fill_wavefront)
-    vals_d, ptrs_d = fill(reads, genomes, scoring=scoring)  # (B, D, L1+1)
-    D = L1 + L2 + 1
-
-    # nw endpoint: cell (i0, d - i0) of every diagonal d
-    i0 = rlen.clamp(0, L1)
-    rowv = vals_d.gather(
-        2, i0.long()[:, None, None].expand(B, D, 1)).squeeze(2)
-    jcol = torch.arange(D, dtype=torch.int32, device=dev)[None, :] \
-        - i0[:, None]
-    validj = (jcol >= 0) & (jcol <= glen.clamp(max=L2)[:, None])
-    dstar = _first_argmax(torch.where(validj, rowv, _NEG), 1)
-    maxloc = torch.where(validj.any(dim=1), dstar.to(torch.int32) - i0, 0)
-    j0 = torch.where(want_nw == 1, maxloc, glen.clamp(0, L2))
-
-    # walk the pointers from (i0, j0); column s of ``ops`` is diagonal
-    # D-1-s, 3 = no op.  A step on diagonal d needs i, j > 0, so d >= 2,
-    # and no lane starts above max(i0 + j0).
-    ops = torch.full((B, D), 3, dtype=torch.int32, device=dev)
-    i, j = i0, j0
-    dtop = min(int((i0 + j0).max()) if B else 0, D - 1)
-    for d in range(dtop, 1, -1):
-        on = (i + j == d) & (i > 0) & (j > 0)
-        p = ptrs_d[:, d].gather(1, i.long()[:, None]).squeeze(1)
-        op = torch.where(on, torch.where((p == 1) | (p == 2), p, 0), 3)
-        ops[:, D - 1 - d] = op
-        i = i - (on & (op != 2)).to(torch.int32)
-        j = j - (on & (op != 1)).to(torch.int32)
-    return (maxloc, i, j, *_rle_device(ops), ops)
+    """Batched NW/SW stitch on (B,) int32 job fields
+    (:func:`~bwt_tpu_torch.ops.dp_wavefront.dp_stitch`): on the card one
+    kernel launch that gathers the slices, fills the DP, takes the nw
+    endpoint, walks the pointers back and run-length encodes the ops; on
+    the CPU, or anywhere with ``plain``, the plain version over the plain
+    fill.  Returns (maxloc, i_resid, j_resid, nrun, vals, counts, ops), the
+    first six views of the stitch's one packed tensor; the caller appends
+    the I/D residuals (smw.c:99-104)."""
+    P, ops = _stitch_fn(plain)(bank, genome, row, roff, rlen, rrev, gstart,
+                               glen, grev, want_nw, L1=L1, L2=L2,
+                               scoring=scoring)
+    return (*dp_wavefront.unpack(P), ops)
 
 
 _OP_CHARS = ("M", "I", "D")
@@ -348,9 +268,10 @@ class QueryService:
     (for nw/sw requests) and the per-run pattern bank, all on the
     index's device.
 
-    ``dp_impl`` = "kernel" (default) fills DP stitches with the CUDA
-    kernel on a card (its plain twin on the CPU); "plain" forces the
-    plain twin on any device, to compare the two."""
+    ``dp_impl`` = "kernel" (default) runs each bucket of DP stitches as
+    one launch of the stitch kernel on a card (its plain version on the
+    CPU); "plain" forces the plain version on any device, to compare the
+    two."""
 
     def __init__(self, fmi: FMIndex, genome=None, config=None):
         from bwt_tpu_torch.config import DEFAULT
@@ -374,6 +295,7 @@ class QueryService:
         self._has_n = False
         self.bank = None
         self.dp_impl = "kernel"
+        self.last_stats: dict = {}  # the last executor run's counters
 
     def add_read(self, codes) -> int:
         """Register a read's codes; returns its bank row handle."""
@@ -413,7 +335,8 @@ class BatchExecutor:
         self.fmi = self.svc.fmi
         self.stats = {"rounds": 0, "svc_calls": 0, "dp_calls": 0,
                       "rng_calls": 0, "t_svc": 0.0, "t_dp": 0.0,
-                      "t_gen": 0.0}
+                      "t_dp_finish": 0.0,  # the host decode's part of t_dp
+                      "t_gen": 0.0, "dp_shapes": {}}  # "L1xL2" -> jobs
 
     def _lanes(self, fields: np.ndarray) -> list[torch.Tensor]:
         """(k, B) host int32 fields -> k device (B,) tensors, one copy."""
@@ -491,8 +414,9 @@ class BatchExecutor:
                 for k, (i, r) in enumerate(items)}
 
     def _start_dp(self, items):
-        """Group nw/sw requests by padded DP shape; one fill and
-        backtrack per shape bucket."""
+        """Group nw/sw requests by padded DP shape; one upload, one stitch
+        and one copy back per shape bucket (and the raw op rows when a
+        job has more runs than the compact form holds)."""
         t0 = time.perf_counter()
         if self.svc.genome_dev is None:
             raise ValueError(
@@ -507,25 +431,25 @@ class BatchExecutor:
             for k, (_, r) in enumerate(members):
                 f[:7, k] = r[1:8]  # row roff rlen rrev gstart glen grev
                 f[7, k] = 1 if r[0] == "nw" else 0
-            out = _dp_core(bank, self.svc.genome_dev, *self._lanes(f),
-                           L1=L1, L2=L2, scoring=self.svc.scoring,
-                           plain=self.svc.dp_impl == "plain")
-            maxloc, i_res, j_res, nrun, vals, counts, ops = out
-            small = torch.stack([maxloc, i_res, j_res, nrun]).cpu().numpy()
-            runs = torch.stack([vals, counts]).cpu().numpy()
-            ops_np = (ops.cpu().numpy() if small[3].max(initial=0) > _RLE_R
-                      else None)
-            pend.append((small, runs, ops_np, members))
+            small, ops = _stitch_fn(self.svc.dp_impl == "plain")(
+                bank, self.svc.genome_dev, *self._lanes(f), L1=L1, L2=L2,
+                scoring=self.svc.scoring)
+            small = small.cpu().numpy()
+            ops_np = (ops.cpu().numpy()
+                      if small[:, 3].max(initial=0) > _RLE_R else None)
+            pend.append((small, ops_np, members))
             self.stats["dp_calls"] += 1
+            shapes = self.stats["dp_shapes"]
+            shapes[f"{L1}x{L2}"] = shapes.get(f"{L1}x{L2}", 0) + len(members)
         self.stats["t_dp"] += time.perf_counter() - t0
         return pend
 
     @staticmethod
     def _finish_dp(pend) -> dict:
         replies = {}
-        for small, runs, ops_np, members in pend:
-            ml, ir, jr, nr = (a.tolist() for a in small)
-            vl, cl = runs[0].tolist(), runs[1].tolist()
+        for small, ops_np, members in pend:
+            ml, ir, jr, nr, vl, cl = (a.tolist()
+                                      for a in dp_wavefront.unpack(small))
             for k, (i, r) in enumerate(members):
                 if nr[k] > _RLE_R:
                     rr = _ops_to_runs(ops_np[k], ir[k], jr[k])
@@ -566,6 +490,7 @@ class BatchExecutor:
             for i, out in replies.items():
                 step(i, out)
             self.stats["t_gen"] += time.perf_counter() - t0
+        self.svc.last_stats = dict(self.stats)
         return results
 
     def _dispatch_round(self, ids, pending):
@@ -617,7 +542,11 @@ class BatchExecutor:
                 else np.zeros((0,), np.int32)
             offp += max(e - s, 0)
         if dp_pend is not None:
+            t0 = time.perf_counter()
             replies.update(self._finish_dp(dp_pend))
+            dt = time.perf_counter() - t0
+            self.stats["t_dp"] += dt
+            self.stats["t_dp_finish"] += dt
         for i, n in par_n.items():
             replies[i] = [replies.pop((i, j)) for j in range(n)]
         return replies

@@ -108,8 +108,12 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
+            LL = ctypes.POINTER(ctypes.c_longlong)
             for name, argtypes in (
                     ("dp_wavefront_launch", [P] * 4 + [I] * 7 + [P]),
+                    ("dp_stitch_plan", [I, I, LL]),
+                    ("dp_stitch_launch",
+                     [P, I, I, P, I] + [P] * 8 + [I] * 8 + [P] * 4),
                     ("backward_search_launch",
                      [P, P, I, I, I, I, I, P, P, P, I, I, P, I, P, P, P, P]),
                     ("unc_sa_launch",

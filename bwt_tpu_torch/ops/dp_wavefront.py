@@ -1,5 +1,5 @@
-"""Batched anti-diagonal DP fill: the CUDA kernel's wrapper and its plain
-PyTorch twin.
+"""Batched anti-diagonal DP: the fill and the whole stitch, each a CUDA
+kernel's wrapper beside its plain PyTorch version.
 
 ``dp_fill_wavefront(reads, genomes)`` fills, for every job b, the NW DP
 matrix of ``reads[b]`` (codes 0-3, 5 = N, zero-padded) against
@@ -9,22 +9,45 @@ matrix of ``reads[b]`` (codes 0-3, 5 = N, zero-padded) against
 bit-equal to ``bwt_tpu.ops.pallas_align.dp_fill_wavefront`` (the Pallas
 TPU kernel it replaces), including the cells outside the matrix.
 
-A CUDA tensor runs the hand-written kernel (``csrc/dp_wavefront.cu``)
-and nothing else: a build or launch failure raises.  A CPU tensor runs
-the plain twin, :func:`dp_fill_wavefront_plain`, which the tests hold
-against the JAX package and the card holds the kernel against.
+``dp_stitch(bank, genome, row, ..., want_nw, L1=, L2=)`` is the executor's
+whole DP step on (B,) job fields: gather the slices, fill, take the nw
+endpoint, walk the pointers back and run-length encode the ops.  It is
+bit-equal to ``bwt_tpu.models.batch_exec._dp_core`` and returns only the
+end cell, the residuals, the runs and the op row of each job.
+
+``nw_fast_batch(reads, read_lens, genomes, genome_lens)`` is
+:func:`bwt_tpu_torch.ops.align.nw_fast` on a batch of pairs over
+``dp_fill_wavefront``: the counterpart of
+``bwt_tpu.ops.pallas_align.nw_fast_batch``.
+
+A CUDA tensor runs the hand-written kernel (``csrc/dp_wavefront.cu``,
+``csrc/dp_stitch.cu``, both over ``csrc/dp_cell.cuh``) and nothing else:
+a build or launch failure raises.  A CPU tensor runs the plain version
+(:func:`dp_fill_wavefront_plain`, :func:`dp_stitch_plain`), which the
+tests hold against the JAX package and the card holds the kernel against.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from bwt_tpu_torch.ops import _kernels
-from bwt_tpu_torch.ops.align import default_scoring
+from bwt_tpu_torch.ops.align import _backtrack, default_scoring
+from bwt_tpu_torch.utils.cigar import Cigar
 
-# kernel launches made by dp_fill_wavefront (a plain counter; callers
-# reset it to show that a run went through the kernel)
+# kernel launches made by dp_fill_wavefront and by dp_stitch (plain
+# counters; callers reset them to show that a run went through a kernel)
 LAUNCHES = 0
+STITCH_LAUNCHES = 0
+
+# backtrack runs per job that dp_stitch returns compactly; a job with more
+# is decoded from its raw op row by the caller
+RLE_R = 40
+
+_NEG = -(1 << 30)
 
 
 def _check(reads: torch.Tensor, genomes: torch.Tensor) -> None:
@@ -117,3 +140,249 @@ def dp_fill_wavefront_plain(reads: torch.Tensor, genomes: torch.Tensor, *,
         ptrs[:, d] = p.to(torch.int32)
         prev2, prev1, pptr1 = prev1, v, p
     return vals, ptrs
+
+
+def ptr_matrix(ptrs_d: np.ndarray, l1: int, l2: int) -> np.ndarray:
+    """Per-diagonal (L1+L2+1, L1+1) cells -> the conventional (l1+1, l2+1)
+    matrix."""
+    i = np.arange(l1 + 1)[:, None]
+    j = np.arange(l2 + 1)[None, :]
+    return ptrs_d[i + j, i]
+
+
+def nw_fast_batch(reads, read_lens, genomes, genome_lens, *, scoring=None,
+                  device=None):
+    """:func:`bwt_tpu_torch.ops.align.nw_fast` for a batch of pairs with
+    the batched fill: (endpos (B,) int32, cigars).  ``reads`` (B, L1) and
+    ``genomes`` (B, L2) are zero-padded code arrays, pair b being
+    ``reads[b, :read_lens[b]]`` against ``genomes[b, :genome_lens[b]]``.
+    The fill runs on ``device`` (default: the card when there is one) as one
+    :func:`dp_fill_wavefront` call; the endpoint and the backtrack of each
+    pair run on the host."""
+    from bwt_tpu_torch.index import default_device
+
+    reads = np.ascontiguousarray(reads, dtype=np.int32)
+    genomes = np.ascontiguousarray(genomes, dtype=np.int32)
+    read_lens = np.asarray(read_lens)
+    genome_lens = np.asarray(genome_lens)
+    dev = torch.device(device) if device is not None else default_device()
+    vals, ptrs = dp_fill_wavefront(torch.from_numpy(reads).to(dev),
+                                   torch.from_numpy(genomes).to(dev),
+                                   scoring=scoring)
+    vals, ptrs = vals.cpu().numpy(), ptrs.cpu().numpy()
+    out, cigars = [], []
+    for b in range(reads.shape[0]):
+        l1, l2 = int(read_lens[b]), int(genome_lens[b])
+        c = Cigar()
+        if l1 == 0:
+            out.append(0)
+            cigars.append(c)
+            continue
+        # row l1 of pair b: cell (l1, j) is [d = l1 + j, i = l1]
+        row = vals[b, l1:l1 + l2 + 1, l1]
+        maxloc = int(np.argmax(row))  # first max == strict > scan
+        P = ptr_matrix(ptrs[b], reads.shape[1], genomes.shape[1])
+        _backtrack(P, l1, maxloc, c, flip=True)
+        out.append(maxloc - 1)
+        cigars.append(c)
+    return np.asarray(out, np.int32), cigars
+
+
+# --------------------------------------------------------------------------
+# The whole stitch: gather, fill, endpoint, backtrack, run-length ops
+# --------------------------------------------------------------------------
+
+_FIELDS = ("row", "roff", "rlen", "rrev", "gstart", "glen", "grev", "want_nw")
+
+
+def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the first maximum along ``dim`` (the strict '>' scan)."""
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    ar = torch.arange(n, device=x.device).reshape(shape)
+    is_max = x == x.amax(dim=dim, keepdim=True)
+    return torch.where(is_max, ar, n).amin(dim=dim)
+
+
+def _rle_device(ops: torch.Tensor):
+    """Run-length encode each backtrack row (walk order; op 3 = none).  A
+    run is a stretch of equal ops in neighbouring columns.
+
+    Returns (nrun (B,), vals (B, RLE_R), counts (B, RLE_R)), int32: the
+    first RLE_R runs, zero past them.  Rows whose run count or a kept
+    run's length would pass 32000 report nrun = RLE_R + 1, so the caller
+    decodes them from the raw ops."""
+    B, S = ops.shape
+    dev = ops.device
+    live = ops != 3
+    prevop = torch.cat([torch.full((B, 1), -1, dtype=ops.dtype, device=dev),
+                        ops[:, :-1]], dim=1)
+    prevlive = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                          live[:, :-1]], dim=1)
+    starts = live & (~prevlive | (ops != prevop))
+    rid = torch.cumsum(starts.to(torch.int64), dim=1)  # 1-based run id
+    nrun = rid[:, -1]
+    keep = rid <= RLE_R
+    counts = torch.zeros((B, RLE_R + 1), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, torch.where(live & keep, rid, 0),
+                        live.to(torch.int64))
+    vals = torch.zeros_like(counts)
+    vals.scatter_add_(1, torch.where(starts & keep, rid, 0),
+                      torch.where(starts, ops, 0).to(torch.int64))
+    counts, vals = counts[:, 1:], vals[:, 1:]
+    over = (nrun > 32000) | (counts.amax(dim=1) > 32000)
+    nrun = torch.where(over, RLE_R + 1, nrun.clamp(max=32000))
+    return (nrun.to(torch.int32), vals.to(torch.int32),
+            counts.to(torch.int32))
+
+
+def _check_stitch(bank, genome, fields) -> None:
+    tensors = (("bank", bank, 2), ("genome", genome, 1),
+               *((n, f, 1) for n, f in zip(_FIELDS, fields)))
+    for name, t, ndim in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape "
+                             f"{tuple(t.shape)}")
+        if t.device != bank.device:
+            raise ValueError(f"bank on {bank.device} but {name} on "
+                             f"{t.device}")
+    if bank.shape[0] < 1 or bank.shape[1] < 1 or genome.shape[0] < 1:
+        raise ValueError("bank and genome must not be empty")
+    if any(f.shape != fields[0].shape for f in fields):
+        raise ValueError("the eight job fields must have one shape (B,)")
+
+
+def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
+              rrev, gstart, glen, grev, want_nw, *, L1: int, L2: int,
+              scoring=None):
+    """The batched NW/SW stitch on (B,) int32 job fields: job b aligns
+    ``bank[row, roff:roff+rlen]`` (read codes, (R, Lb) int32) against
+    ``genome[gstart:gstart+glen]`` ((G,) int32), either slice reversed
+    where ``rrev`` / ``grev`` is 1, in a DP padded to (L1, L2); nw jobs
+    (``want_nw`` 1) end at the first maximum of the read's last row, sw
+    jobs at (rlen, glen).  ``row`` must lie in [0, R).
+
+    Returns (P, ops), int32.  P (B, 4 + 2 * RLE_R) holds, side by side for
+    one copy to the host, maxloc, i_resid, j_resid, nrun, then the first
+    RLE_R runs' ops and their lengths in walk order (:func:`unpack` splits
+    it); ops (B, L1+L2+1) is the raw op row, column s = diagonal L1+L2-s,
+    3 = no op.  On the card this is one launch of ``csrc/dp_stitch.cu``
+    (jobs of up to 11,621 rows: a taller one raises); on the CPU,
+    :func:`dp_stitch_plain`."""
+    global STITCH_LAUNCHES
+    fields = (row, roff, rlen, rrev, gstart, glen, grev, want_nw)
+    _check_stitch(bank, genome, fields)
+    L1, L2 = int(L1), int(L2)
+    if L1 < 0 or L2 < 0:
+        raise ValueError(f"negative DP shape ({L1}, {L2})")
+    scoring = tuple(int(s) for s in (scoring or default_scoring()))
+    dev = bank.device
+    if dev.type == "cpu":
+        return dp_stitch_plain(bank, genome, *fields, L1=L1, L2=L2,
+                               scoring=scoring)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    B = row.shape[0]
+    P = torch.empty((B, 4 + 2 * RLE_R), dtype=torch.int32, device=dev)
+    ops = torch.empty((B, L1 + L2 + 1), dtype=torch.int32, device=dev)
+    if B:
+        lib = _kernels.library()
+        ptr_bytes = ctypes.c_longlong()
+        if lib.dp_stitch_plan(L1, L2, ctypes.byref(ptr_bytes)) < 0:
+            raise ValueError(
+                f"a DP job of {L1 + 1} rows is too tall for the stitch "
+                f"kernel: its carried diagonals do not fit a block's shared "
+                f"memory")
+        ptrs = None  # a byte a cell, where the job is too tall for a warp
+        if ptr_bytes.value:
+            ptrs = torch.empty(B * ptr_bytes.value, dtype=torch.uint8,
+                               device=dev)
+        bank, genome = bank.contiguous(), genome.contiguous()
+        fields = [f.contiguous() for f in fields]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.dp_stitch_launch(
+                bank.data_ptr(), *bank.shape, genome.data_ptr(),
+                genome.shape[0], *(f.data_ptr() for f in fields), B, L1, L2,
+                *scoring, RLE_R, P.data_ptr(), ops.data_ptr(),
+                ptrs.data_ptr() if ptrs is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"dp_stitch kernel launch failed: CUDA error "
+                               f"{err}")
+        STITCH_LAUNCHES += 1
+    return P, ops
+
+
+def pack(maxloc, i_resid, j_resid, nrun, vals, counts) -> torch.Tensor:
+    """(B, 4 + 2 * RLE_R): the stitch's six small outputs side by side."""
+    return torch.cat([torch.stack([maxloc, i_resid, j_resid, nrun], dim=1),
+                      vals, counts], dim=1)
+
+
+def unpack(P):
+    """The six outputs of a :func:`pack` ed tensor (or numpy array), as
+    views: maxloc, i_resid, j_resid, nrun (B,), then the kept runs' ops and
+    lengths (B, RLE_R)."""
+    return (P[:, 0], P[:, 1], P[:, 2], P[:, 3], P[:, 4:4 + RLE_R],
+            P[:, 4 + RLE_R:])
+
+
+def dp_stitch_plain(bank, genome, row, roff, rlen, rrev, gstart, glen, grev,
+                    want_nw, *, L1: int, L2: int, scoring=None, fill=None):
+    """The plain PyTorch version of the stitch kernel, on any device: the
+    gather (both slices reversed for the head alignment,
+    single_align.c:256-272), the fill by anti-diagonals (``fill``, default
+    :func:`dp_fill_wavefront_plain`), the nw endpoint (first max of the
+    read's last row, smw.c:65-70), one eager step per diagonal of the walk
+    back, and :func:`_rle_device`.  Returns (P, ops) as :func:`dp_stitch`
+    does; the caller appends the I/D residuals (smw.c:99-104)."""
+    B = row.shape[0]
+    Lb = bank.shape[1]
+    dev = row.device
+    k1 = torch.arange(L1, dtype=torch.int32, device=dev)[None, :]
+    ridx = torch.where(rrev[:, None] == 1,
+                       roff[:, None] + rlen[:, None] - 1 - k1,
+                       roff[:, None] + k1)
+    reads = bank[row.long()].gather(1, ridx.clamp(0, Lb - 1).long())
+    reads = torch.where(k1 < rlen[:, None], reads, 0).contiguous()
+    k2 = torch.arange(L2, dtype=torch.int32, device=dev)[None, :]
+    gidx = torch.where(grev[:, None] == 1,
+                       gstart[:, None] + glen[:, None] - 1 - k2,
+                       gstart[:, None] + k2)
+    genomes = genome[gidx.clamp(0, genome.shape[0] - 1).long()]
+    genomes = torch.where(k2 < glen[:, None], genomes, 0).contiguous()
+
+    fill = fill or dp_fill_wavefront_plain
+    vals_d, ptrs_d = fill(reads, genomes, scoring=scoring)  # (B, D, L1+1)
+    D = L1 + L2 + 1
+
+    # nw endpoint: cell (i0, d - i0) of every diagonal d
+    i0 = rlen.clamp(0, L1)
+    rowv = vals_d.gather(
+        2, i0.long()[:, None, None].expand(B, D, 1)).squeeze(2)
+    jcol = torch.arange(D, dtype=torch.int32, device=dev)[None, :] \
+        - i0[:, None]
+    validj = (jcol >= 0) & (jcol <= glen.clamp(max=L2)[:, None])
+    dstar = _first_argmax(torch.where(validj, rowv, _NEG), 1)
+    maxloc = torch.where(validj.any(dim=1), dstar.to(torch.int32) - i0, 0)
+    j0 = torch.where(want_nw == 1, maxloc, glen.clamp(0, L2))
+
+    # walk the pointers from (i0, j0); column s of ``ops`` is diagonal
+    # D-1-s, 3 = no op.  A step on diagonal d needs i, j > 0, so d >= 2,
+    # and no lane starts above max(i0 + j0).
+    ops = torch.full((B, D), 3, dtype=torch.int32, device=dev)
+    i, j = i0, j0
+    dtop = min(int((i0 + j0).max()) if B else 0, D - 1)
+    for d in range(dtop, 1, -1):
+        on = (i + j == d) & (i > 0) & (j > 0)
+        p = ptrs_d[:, d].gather(1, i.long()[:, None]).squeeze(1)
+        op = torch.where(on, torch.where((p == 1) | (p == 2), p, 0), 3)
+        ops[:, D - 1 - d] = op
+        i = i - (on & (op != 2)).to(torch.int32)
+        j = j - (on & (op != 1)).to(torch.int32)
+    return pack(maxloc, i, j, *_rle_device(ops)), ops

@@ -7,8 +7,13 @@ Phases, one output line each (phase 7 one per case), every number beside
 the card's name and power limit:
   0. the card (torch and nvidia-smi);
   1. the CUDA kernel build from csrc/ (nvcc, one per source, in parallel);
-  2. the DP kernel against its plain PyTorch twin on the card, at the
-     stitch shapes the aligner uses: vals and ptrs must be bit-equal;
+  2. the DP kernels against their plain PyTorch versions on the card, at
+     the stitch shapes the aligner uses and at a taller one (a block a
+     job): the fill's vals and ptrs and both outputs of the fused stitch
+     (the packed end cells, residuals and runs; the op rows) must be
+     bit-equal; the stitch is also timed beside the path it replaces
+     (gather, fill kernel, endpoint, one eager step a diagonal,
+     run-length ops);
   3. index build of a 2^25-base random genome at sa_sample_rate 4,
      checked with verify_suffix_array;
   4. locate of 2^20 random 30-mers cut from the genome, plain and with a
@@ -16,10 +21,15 @@ the card's name and power limit:
      position checked against the genome; count_matches on the same
      patterns through the standalone backward-search kernel (K3);
   5. single_align (align_reads) on 4096 reads of 80 bp with one
-     substitution each: the DP kernel and K4 must have been launched,
-     every aligned CIGAR consumes its read, at least half the reads land
-     at their true start, and a 256-read subset gives the same results
-     through the plain twin;
+     substitution each: the stitch kernel and K4 must have been launched
+     and the standalone fill not, every aligned CIGAR consumes its read,
+     at least half the reads land at their true start, a 256-read subset
+     gives the same results through the plain version, and the executor's
+     own clocks (t_svc, t_dp) are printed; then nw_fast_batch, the batched
+     free-tail aligner over the standalone fill (K1), on 4096 pairs of an
+     80-bp read and its 100-bp window, padded to 96 x 128: one fill launch,
+     every CIGAR consumes its read, all pairs equal to the same call on
+     the CPU and 16 of them to the host's nw_fast;
   6. the CLI (build_index, single_align, locate, search_reads) as
      subprocesses with ``--platform cuda`` on a 1 Mb genome and 512
      reads: stdout equals the same run in process;
@@ -41,10 +51,12 @@ the card's name and power limit:
      and seeded (device busy time, device ops), and search_reads, whose
      wall it splits into host encode, upload, kernels and download.
 Each path of phases 4, 5 and 8 runs with the kernels' launch counts set
-to 0 just before it and read just after.  Then one JSON line with the
-five kernels, the nvidia-smi line, and as the last line ``{"ok": true,
-"device": {...}}``.  Any failed phase raises and exits non-zero; so does
-a machine without CUDA.
+to 0 just before it and read just after; a kernel's ``launches`` are
+those of the paths that run it and never those of a comparison (the
+standalone fill's are nw_fast_batch's: single_align fills inside the
+stitch kernel).  Then one JSON line with the six kernels, the nvidia-smi
+line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+phase raises and exits non-zero; so does a machine without CUDA.
 
 A kernel's bound is the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s (each input the run needs
@@ -63,11 +75,14 @@ of the new interval's ends and the match count (SEARCH_STEP_OPS); a walk
 step is one rank, the row's symbol (shift, mask), the add of C[c], the
 test for a sampled row and the step count (WALK_STEP_OPS); a DP cell is
 the match test and its score (5), the two gap scores (4 each), two maxima
-and the pointer (4) (DP_CELL_OPS).  The resolution of an N, forming the
+and the pointer (4) (DP_CELL_OPS).  The fused stitch's bytes are its job
+fields, the two slices and its outputs, each once; its operations are
+DP_CELL_OPS times the cells of each job's own (rlen + 1) x (min(glen, L2)
++ 1) matrix, plus one a step of the walk back.  The resolution of an N, forming the
 lane masks, addresses and branches are left out, so the bound is, if
 anything, low.  No PyTorch call computes a backward search, an SA walk,
-an anchor hunt or an affine-gap DP fill, so ``library_ms`` is null for
-every kernel.
+an anchor hunt, an affine-gap DP fill or its backtrack, so ``library_ms``
+is null for every kernel.
 """
 
 from __future__ import annotations
@@ -85,6 +100,9 @@ sys.path.insert(0, str(ROOT))
 
 DP_SHAPES = ((32, 32), (32, 64), (64, 64), (64, 96), (96, 128))
 ALT_SCORING = (1, -2, -9, -1)
+TALL_SHAPE = (256, 160, 192)     # B, L1, L2: past a warp's 128 rows
+NW_SHAPE = (96, 128)             # nw_fast_batch's padded read and window
+NW_PAIRS = 4096
 READ_LEN = 80
 SEED_K = 12
 
@@ -178,14 +196,27 @@ def dp_jobs(rng, B, L1, L2):
     return reads, genomes
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events."""
+def cuda_ms(fn, reps: int, ahead: bool = False) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events.  With ``ahead``
+    the card first spins for longer than the host takes to enqueue all
+    ``reps`` calls, so that a kernel shorter than its wrapper's host time
+    is timed back to back and not at the host's pace.  The spin is
+    ``torch.cuda._sleep``, a private call that takes cycles: 2 GHz is
+    assumed, and twice the host's time asked for, so a card clocked
+    anywhere near that spins long enough."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - h0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2.0e9 * (2 * host_s + 1e-3)))  # cycles
     t0.record()
     for _ in range(reps):
         fn()
@@ -238,6 +269,8 @@ def phase_kernel(rng, tag):
 
     cases = [(B, L1, L2, None) for L1, L2 in DP_SHAPES for B in (8, 1024)]
     cases.append((1024, 32, 64, ALT_SCORING))
+    cases.append((*TALL_SHAPE, None))
+    cases.append((NW_PAIRS, *NW_SHAPE, None))  # what nw_fast_batch sends
     rows = []
     for B, L1, L2, scoring in cases:
         r_np, g_np = dp_jobs(rng, B, L1, L2)
@@ -250,7 +283,8 @@ def phase_kernel(rng, tag):
         require(torch.equal(vk, vp) and torch.equal(pk, pp),
                 f"dp_wavefront kernel differs from its plain twin at "
                 f"B={B} L1={L1} L2={L2} scoring={scoring}: max |dv| {err}")
-        ms = cuda_ms(lambda: dw.dp_fill_wavefront(r, g, scoring=scoring), 20)
+        ms = cuda_ms(lambda: dw.dp_fill_wavefront(r, g, scoring=scoring), 20,
+                     ahead=True)
         plain_ms = cuda_ms(
             lambda: dw.dp_fill_wavefront_plain(r, g, scoring=scoring), 3)
         cells = B * (L1 + L2 + 1) * (L1 + 1)  # stored, by diagonal and row
@@ -263,6 +297,112 @@ def phase_kernel(rng, tag):
               f"max |dv| {err}), kernel {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
               f"ms by {bound['bound_by']} {tag}", flush=True)
+    return rows
+
+
+def stitch_jobs(rng, B, L1, L2, R=64, G=1 << 16):
+    """A pattern bank, a genome and (8, B) job fields as the executor makes
+    them: both directions, nw and sw, rlen 0 and L1, glen 0 and L2, N's
+    in the reads and an all-N read, reads cut from the genome (every
+    diagonal step is a run of its own, so these pass the 40 kept runs
+    where the shape allows), and a tail of all-zero padding lanes."""
+    import numpy as np
+
+    Lb = L1 + 16
+    genome = rng.integers(0, 4, size=G).astype(np.int32)
+    genome[:2 * L2] = 0  # a repeat: long gap runs
+    bank = rng.integers(0, 4, size=(R, Lb)).astype(np.int32)
+    bank[rng.random(bank.shape) < 0.02] = 5
+    bank[R - 1] = 5
+    cut = rng.integers(0, G - Lb, size=R // 4)
+    bank[: R // 4] = genome[cut[:, None] + np.arange(Lb)]
+    n = B - B // 8
+    f = np.zeros((8, B), np.int32)
+    f[0, :n] = rng.integers(0, R, size=n)
+    f[2, :n] = rng.integers(0, L1 + 1, size=n)
+    f[1, :n] = rng.integers(0, Lb - f[2, :n] + 1)
+    f[3, :n] = rng.integers(0, 2, size=n)
+    f[5, :n] = rng.integers(0, L2 + 1, size=n)
+    f[4, :n] = rng.integers(0, G - L2, size=n)
+    f[6, :n] = rng.integers(0, 2, size=n)
+    f[7, :n] = rng.integers(0, 2, size=n)
+    exact = np.arange(0, n, 4)  # forward reads against their own origin
+    f[0, exact] = rng.integers(0, R // 4, size=exact.size)
+    f[1, exact], f[2, exact], f[3, exact] = 0, L1, 0
+    f[4, exact] = cut[f[0, exact]]
+    f[5, exact], f[6, exact] = min(L1 + 3, L2), 0
+    for k, rl, gl in ((1, 0, L2), (2, L1, 0), (3, 0, 0), (5, L1, L2)):
+        if k < n:
+            f[1, k], f[2, k], f[5, k] = 0, rl, gl
+    if n > 6:
+        f[0, 6] = R - 1  # the all-N read
+    return bank, genome, f
+
+
+def phase_stitch(rng, tag):
+    """Phase 2, the fused stitch: both outputs (the six packed ones, the
+    op rows) against the plain version, bit-equal; timed beside its bound
+    and the path it replaces."""
+    import torch
+
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+
+    cases = [(B, L1, L2, None) for L1, L2 in DP_SHAPES for B in (8, 1024)]
+    cases.append((1024, 32, 64, ALT_SCORING))
+    cases.append((*TALL_SHAPE, None))
+    names = ("maxloc", "i_resid", "j_resid", "nrun", "vals", "counts", "ops")
+    rows = []
+    for B, L1, L2, scoring in cases:
+        bank_np, genome_np, f_np = stitch_jobs(rng, B, L1, L2)
+        bank = torch.from_numpy(bank_np).cuda()
+        genome = torch.from_numpy(genome_np).cuda()
+        f = list(torch.from_numpy(f_np).cuda().unbind(0))
+        kw = dict(L1=L1, L2=L2, scoring=scoring)
+        P, ops = dw.dp_stitch(bank, genome, *f, **kw)
+        (Pp, opsp), plain_ms = _event_ms(
+            lambda: dw.dp_stitch_plain(bank, genome, *f, **kw))
+        got, want = (*dw.unpack(P), ops), (*dw.unpack(Pp), opsp)
+        err = _max_abs_diff(got, want)
+        bad = [n for n, a, b in zip(names, got, want)
+               if a.shape != b.shape or a.dtype != b.dtype
+               or not torch.equal(a, b)]
+        require(not bad, f"dp_stitch differs from its plain version at B={B} "
+                         f"L1={L1} L2={L2} scoring={scoring} in {bad}: max "
+                         f"|d| {err}")
+        # the path the kernel replaces: the same eager program around the
+        # fill kernel; host-bound, so its wall
+        unfused = lambda: dw.dp_stitch_plain(  # noqa: E731
+            bank, genome, *f, fill=dw.dp_fill_wavefront, **kw)
+        unfused()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unfused()
+        torch.cuda.synchronize()
+        unfused_ms = (time.perf_counter() - t0) * 1e3
+        rlen, glen = f[2].long(), f[5].long()
+        i0, jmax = rlen.clamp(0, L1), glen.clamp(max=L2)
+        cells = int(((i0 + 1) * (jmax + 1).clamp(min=0)).sum())
+        steps = int((got[6] != 3).sum())
+        over = int((got[3] > dw.RLE_R).sum())
+        bound = bound_of(
+            4 * (8 * B + int(i0.sum()) + int(jmax.clamp(min=0).sum())
+                 + sum(t.numel() for t in got)),
+            DP_CELL_OPS * cells + steps)
+        ms = cuda_ms(lambda: dw.dp_stitch(bank, genome, *f, **kw), 20,
+                     ahead=True)
+        rows.append(dict(B=B, L1=L1, L2=L2, scoring=scoring or "default",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         unfused_wall_ms=unfused_ms, cells=cells,
+                         walk_steps=steps, over_runs=over, **bound))
+        print(f"phase 2 dp_stitch B={B} L1={L1} L2={L2} "
+              f"scoring={scoring or 'default'}: the packed outputs and the op "
+              f"rows bit-equal "
+              f"(tolerance 0, max |d| {err}), {over} jobs past "
+              f"{dw.RLE_R} runs, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bytes']} bytes, {bound['ops']} operations); the "
+              f"eager path around the fill kernel that it replaces: "
+              f"{unfused_ms:.4f} ms of wall {tag}", flush=True)
     return rows
 
 
@@ -381,14 +521,21 @@ def phase_align(fmi, codes_np, rng, nreads, tag, subset=256):
     starts, reads = mutated_reads(rng, codes_np, nreads)
     svc = QueryService(fmi, codes_np)
     aligner.align_reads(fmi, codes_np, reads[:64], service=svc)  # warm-up
-    dp_wavefront.LAUNCHES = search.UNC_LAUNCHES = search.BS_LAUNCHES = 0
+    dp_wavefront.LAUNCHES = dp_wavefront.STITCH_LAUNCHES = 0
+    search.UNC_LAUNCHES = search.BS_LAUNCHES = 0
     t0 = time.perf_counter()
     res = aligner.align_reads(fmi, codes_np, reads, service=svc,
                               with_strand=True)
     dt = time.perf_counter() - t0
-    launches, unc = dp_wavefront.LAUNCHES, search.UNC_LAUNCHES
-    bs = search.BS_LAUNCHES
-    require(launches > 0, "the DP kernel was not launched by single_align")
+    launches, fills = dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES
+    unc, bs = search.UNC_LAUNCHES, search.BS_LAUNCHES
+    stats = dict(svc.last_stats)
+    require(launches > 0, "the stitch kernel was not launched by "
+                          "single_align")
+    require(fills == 0, f"single_align launched the standalone fill {fills} "
+                        f"times: the stitch kernel fills")
+    require(launches == stats["dp_calls"],
+            f"{launches} stitch launches for {stats['dp_calls']} DP calls")
     require(unc > 0, "K4 (unc_sa) was not launched by single_align")
     aligned = [(k, r) for k, r in enumerate(res) if r[0]]
     for k, (_, cig, _) in aligned:
@@ -411,17 +558,87 @@ def phase_align(fmi, codes_np, rng, nreads, tag, subset=256):
         return [(p, c.render() if c else None, s) for p, c, s in rs]
 
     require(norm(with_kernel) == norm(with_plain),
-            "single_align differs between the DP kernel and its plain twin")
+            "single_align differs between the stitch kernel and its plain "
+            "version")
     require(norm(with_kernel) == norm(res[:subset]),
             "single_align subset differs from the full run")
     print(f"phase 5 single_align {nreads} x {READ_LEN} bp: "
           f"{len(aligned)} aligned, {share:.4f} at true start, "
-          f"{nreads / dt:.1f} reads/s ({dt:.3f} s), dp_wavefront launches "
-          f"{launches}, K4 launches {unc}; {subset}-read subset equal "
-          f"through kernel and plain twin {tag}", flush=True)
+          f"{nreads / dt:.1f} reads/s ({dt:.3f} s), dp_stitch launches "
+          f"{launches}, dp_wavefront (fill) launches {fills}, K4 launches "
+          f"{unc}; executor: {stats['rounds']} rounds, {stats['svc_calls']} "
+          f"service calls {stats['t_svc']:.4f} s, {stats['dp_calls']} DP "
+          f"calls {stats['t_dp']:.4f} s "
+          f"({100 * stats['t_dp'] / dt:.2f} % of the wall, "
+          f"{stats['t_dp_finish']:.4f} s of it the host's decode of the "
+          f"runs; jobs by padded "
+          f"shape {stats['dp_shapes']}), generators "
+          f"{stats['t_gen']:.4f} s; {subset}-read subset equal through "
+          f"kernel and plain version {tag}", flush=True)
     return dict(n=nreads, s=dt, per_s=nreads / dt, at_true=share,
-                aligned=len(aligned), launches=launches, unc_launches=unc,
-                bs_launches=bs)
+                aligned=len(aligned), launches=launches, fill_launches=fills,
+                unc_launches=unc, bs_launches=bs, stats=stats)
+
+
+def phase_nw_batch(codes_np, rng, npairs, tag, window=100, subset=16):
+    """Phase 5, the second path: nw_fast_batch, whose fill is K1."""
+    import numpy as np
+
+    from bwt_tpu_torch.ops import align, dp_wavefront
+    from bwt_tpu_torch.utils.cigar import Cigar
+
+    L1, L2 = NW_SHAPE
+    starts, cut = mutated_reads(rng, codes_np, npairs)
+    reads = np.zeros((npairs, L1), np.int32)
+    reads[:, :READ_LEN] = cut
+    reads[::5, 40:READ_LEN - 2] = reads[::5, 42:READ_LEN]  # a 2-base deletion
+    rl = np.full(npairs, READ_LEN, np.int32)
+    rl[::5] -= 2
+    reads[np.arange(L1)[None, :] >= rl[:, None]] = 0
+    genomes = np.zeros((npairs, L2), np.int32)
+    gs = np.minimum(starts, len(codes_np) - window)
+    genomes[:, :window] = codes_np[np.add.outer(gs, np.arange(window))]
+    gl = np.full(npairs, window, np.int32)
+    dp_wavefront.nw_fast_batch(reads[:64], rl[:64], genomes[:64], gl[:64])
+    dp_wavefront.LAUNCHES = dp_wavefront.STITCH_LAUNCHES = 0
+    t0 = time.perf_counter()
+    pos, cigars = dp_wavefront.nw_fast_batch(reads, rl, genomes, gl)
+    dt = time.perf_counter() - t0
+    fills, stitches = dp_wavefront.LAUNCHES, dp_wavefront.STITCH_LAUNCHES
+    require((fills, stitches) == (1, 0),
+            f"nw_fast_batch is not one launch of the fill kernel: fill, "
+            f"stitch launches {(fills, stitches)}")
+    for k, c in enumerate(cigars):
+        require(_cigar_read_len(c) == rl[k],
+                f"pair {k}: CIGAR {c.render()} does not consume {rl[k]} "
+                f"read bases")
+    # a read cut where its window starts ends READ_LEN columns in, with
+    # or without the two bases deleted from it
+    at_end = int((pos == READ_LEN - 1).sum())
+    require(at_end >= npairs // 2,
+            f"only {at_end} of {npairs} reads end where they were cut")
+    cpu_pos, cpu_cigars = dp_wavefront.nw_fast_batch(reads, rl, genomes, gl,
+                                                     device="cpu")
+    require(np.array_equal(pos, cpu_pos)
+            and [c.render() for c in cigars]
+            == [c.render() for c in cpu_cigars],
+            "nw_fast_batch differs between the fill kernel and the plain "
+            "fill on the CPU")
+    for k in range(subset):
+        c = Cigar()
+        want = align.nw_fast(reads[k, :rl[k]], genomes[k, :gl[k]], c)
+        require(pos[k] == want and cigars[k].render() == c.render(),
+                f"pair {k}: nw_fast_batch gives {pos[k]} {cigars[k].render()},"
+                f" nw_fast {want} {c.render()}")
+    print(f"phase 5 nw_fast_batch {npairs} pairs of {READ_LEN} bp against "
+          f"{window} bp, padded to {L1} x {L2}: every CIGAR consumes its "
+          f"read, {at_end} end where they were cut, all equal to the plain "
+          f"fill on the CPU and {subset} to the host's nw_fast, "
+          f"{npairs / dt:.1f} pairs/s ({dt:.3f} s, the host's backtrack "
+          f"included), dp_wavefront (fill) launches {fills}, dp_stitch "
+          f"launches {stitches} {tag}", flush=True)
+    return dict(n=npairs, s=dt, per_s=npairs / dt, fill_launches=fills,
+                at_end=at_end)
 
 
 def phase_cli(rng, workdir: Path, tag, glen=1_000_000, nreads=512):
@@ -884,7 +1101,7 @@ def main(argv=None) -> int:
     regs = re.findall(r"Used (\d+) registers", _kernels.LAST_REPORT)
     frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                         _kernels.LAST_REPORT)
-    require(len(regs) >= 7 and len(frames) == len(regs),
+    require(len(regs) >= 15 and len(frames) == len(regs),
             "the compiler's report does not list every kernel")
     require(all(f == ("0", "0") for f in frames),
             f"a kernel keeps values in local memory (stack frame, spill "
@@ -896,12 +1113,14 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     dp_rows = phase_kernel(rng, tag)
-    report = dict(card=smi, dp=dp_rows)
+    stitch_rows = phase_stitch(rng, tag)
+    report = dict(card=smi, dp=dp_rows, dp_stitch=stitch_rows)
     codes = rng.integers(0, 4, size=1 << 25).astype(np.uint8)
     fmi, report["build"] = phase_build(codes, dev, tag)
     report["locate"], table, kmers = phase_locate(fmi, codes, rng, 1 << 20,
                                                   tag)
     report["align"] = phase_align(fmi, codes, rng, 4096, tag)
+    report["nw_batch"] = phase_nw_batch(codes, rng, NW_PAIRS, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
     report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
     report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
@@ -913,22 +1132,32 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
 
+    def pool_of(kernel):
+        return {"dp_wavefront": dp_rows, "dp_stitch": stitch_rows}.get(
+            kernel) or [r for r in report["kernels"] if r["kernel"] == kernel]
+
     def row_of(kernel, case=None, **match):
-        pool = dp_rows if kernel == "dp_wavefront" else [
-            r for r in report["kernels"] if r["kernel"] == kernel]
-        return next(r for r in pool if (case is None or r["case"] == case)
+        return next(r for r in pool_of(kernel)
+                    if (case is None or r["case"] == case)
                     and all(r[k] == v for k, v in match.items()))
 
     def worst(kernel):
-        pool = dp_rows if kernel == "dp_wavefront" else [
-            r for r in report["kernels"] if r["kernel"] == kernel]
-        return max(r["max_abs_err"] for r in pool)
+        return max(r["max_abs_err"] for r in pool_of(kernel))
 
     loc, align, sr = report["locate"], report["align"], report["search_reads"]
     entries = [
+        # single_align fills inside dp_stitch (fill launches 0 there): the
+        # standalone fill's path is nw_fast_batch
         ("dp_wavefront", "bwt_tpu_torch/csrc/dp_wavefront.cu",
+         "bwt_tpu/ops/pallas_align.py:44",
+         align["fill_launches"] + report["nw_batch"]["fill_launches"],
+         row_of("dp_wavefront", B=NW_PAIRS, L1=NW_SHAPE[0], L2=NW_SHAPE[1],
+                scoring="default"),
+         f"B={NW_PAIRS} L1={NW_SHAPE[0]} L2={NW_SHAPE[1]}"),
+        ("dp_stitch", "bwt_tpu_torch/csrc/dp_stitch.cu",
+         "bwt_tpu/models/batch_exec.py:721 around "
          "bwt_tpu/ops/pallas_align.py:44", align["launches"],
-         row_of("dp_wavefront", B=1024, L1=32, L2=32, scoring="default"),
+         row_of("dp_stitch", B=1024, L1=32, L2=32, scoring="default"),
          "B=1024 L1=32 L2=32"),
         ("backward_search", "bwt_tpu_torch/csrc/backward_search.cu",
          "tools/probe_pallas_lf.py:103",

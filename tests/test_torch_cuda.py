@@ -1,6 +1,6 @@
-"""bwt_tpu_torch on an NVIDIA card: the CUDA kernels (DP fill, backward
-search, SA walk, the fused locate and anchor scan) against their plain
-versions, and the port's main paths
+"""bwt_tpu_torch on an NVIDIA card: the CUDA kernels (DP fill, the fused
+DP stitch, backward search, SA walk, the fused locate and anchor scan)
+against their plain versions, and the port's main paths
 on the card against the same paths on the CPU (which the other
 test_torch_*.py files hold against bwt_tpu).
 
@@ -27,7 +27,7 @@ from bwt_tpu_torch.models import aligner, exact
 from bwt_tpu_torch.ops import dp_wavefront, search
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import mixed_reads  # noqa: E402
+from chip_smoke import mixed_reads, stitch_jobs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -53,10 +53,15 @@ def _jobs(rng, B, L1, L2):
 
 
 @pytest.mark.parametrize("B,L1,L2", [(1, 2, 3), (8, 32, 32), (64, 32, 64),
-                                     (33, 96, 128), (4, 1100, 40)])
+                                     (33, 96, 128), (5, 127, 40),
+                                     (7, 128, 40), (4, 1100, 40),
+                                     (2, 3000, 8), (2, 12000, 8)])
 def test_kernel_matches_plain(card, B, L1, L2):
-    """Bit-equal at the stitch shapes, at an odd batch, and at L1 past
-    one block's 1,024 threads."""
+    """Bit-equal at the stitch shapes, at an odd batch, at the last shape
+    a warp takes and the first a block takes, at L1 past one block's
+    1,024 threads, with more than 48 KB of carried diagonals in shared
+    memory, and at L1 past the diagonals that fit it (the read-back
+    form)."""
     rng = np.random.default_rng(B * 1000 + L1)
     reads, genomes = _jobs(rng, B, L1, L2)
     r = torch.from_numpy(reads).to(card)
@@ -81,9 +86,71 @@ def test_wrapper_raises_on_card(card):
     assert dp_wavefront.LAUNCHES == launches
 
 
+@pytest.mark.parametrize("B,L1,L2", [
+    (1, 2, 3), (8, 32, 32), (64, 96, 128), (37, 64, 96), (9, 127, 600),
+    (16, 160, 192), (4, 600, 600), (8, 1000, 1000), (2, 3000, 8)])
+def test_stitch_kernel_matches_plain(card, B, L1, L2):
+    """Both outputs bit-equal, one launch a call: a warp a job (at 127 x
+    600 with more than 48 KB of shared memory a block), and a block a job
+    with a byte a pointer in device memory (160 x 192 and wider; at L1 =
+    3,000 past one block's 1,024 threads and with more than 48 KB of
+    carried diagonals in shared memory)."""
+    rng = np.random.default_rng(B * 1000 + L1)
+    bank, genome, f = stitch_jobs(rng, B, L1, L2)
+    args = (torch.from_numpy(bank).to(card), torch.from_numpy(genome).to(card),
+            *torch.from_numpy(f).to(card).unbind(0))
+    for scoring in (None, ALT_SCORING):
+        counts = dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES
+        got = dp_wavefront.dp_stitch(*args, L1=L1, L2=L2, scoring=scoring)
+        assert (dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES) == (
+            counts[0] + 1, counts[1])
+        want = dp_wavefront.dp_stitch_plain(*args, L1=L1, L2=L2,
+                                            scoring=scoring)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_nw_fast_batch_on_card_matches_cpu(card):
+    """The batched nw_fast launches the fill kernel once and gives the CPU
+    run's endpoints and CIGARs."""
+    rng = np.random.default_rng(5)
+    reads, genomes = _jobs(rng, 64, 32, 64)
+    rl = rng.integers(0, 33, size=64)
+    gl = rng.integers(1, 65, size=64)
+    launches = dp_wavefront.LAUNCHES
+    pos, cigars = dp_wavefront.nw_fast_batch(reads, rl, genomes, gl)
+    assert dp_wavefront.LAUNCHES == launches + 1
+    want_pos, want = dp_wavefront.nw_fast_batch(reads, rl, genomes, gl,
+                                                device="cpu")
+    assert np.array_equal(pos, want_pos)
+    assert [c.render() for c in cigars] == [c.render() for c in want]
+
+
+def test_stitch_wrapper_raises_on_card(card):
+    bank = torch.zeros((4, 48), dtype=torch.int32, device=card)
+    genome = torch.zeros(100, dtype=torch.int32, device=card)
+    f = [torch.zeros(8, dtype=torch.int32, device=card) for _ in range(8)]
+    launches = dp_wavefront.STITCH_LAUNCHES
+    with pytest.raises(TypeError):
+        dp_wavefront.dp_stitch(bank, genome.to(torch.int64), *f, L1=32, L2=32)
+    with pytest.raises(ValueError):
+        dp_wavefront.dp_stitch(bank, genome.cpu(), *f, L1=32, L2=32)
+    with pytest.raises(ValueError):
+        dp_wavefront.dp_stitch(bank, genome, *f[:7], f[7].cpu(), L1=32, L2=32)
+    with pytest.raises(ValueError, match="too tall"):  # by shape, no launch
+        dp_wavefront.dp_stitch(bank, genome, *f, L1=12000, L2=32)
+    assert dp_wavefront.STITCH_LAUNCHES == launches
+    empty = [t[:0] for t in f]
+    P, ops = dp_wavefront.dp_stitch(bank, genome, *empty, L1=32, L2=32)
+    assert P.shape == (0, 84) and ops.shape == (0, 65)
+    assert dp_wavefront.STITCH_LAUNCHES == launches  # nothing to launch
+
+
 def test_main_path_on_card_matches_cpu(card):
     """build_index, locate and align_reads on the card equal the CPU run,
-    and the aligner's DP stitches went through the kernel."""
+    and the aligner's DP stitches went through the stitch kernel, which
+    fills itself: no launch of the standalone fill."""
     g = codec.random_genome(30000, seed=11)
     codes = codec.encode_genome(g)
     on_card = bwt_tpu_torch.build_index(g, sa_sample_rate=8, device=card)
@@ -112,9 +179,10 @@ def test_main_path_on_card_matches_cpu(card):
         if k % 11 == 0:
             r[10] = "N"
         reads.append("".join(r))
-    launches = dp_wavefront.LAUNCHES
+    launches = dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES
     got = aligner.align_reads(on_card, g, reads, with_strand=True)
-    assert dp_wavefront.LAUNCHES > launches
+    assert dp_wavefront.STITCH_LAUNCHES > launches[0]
+    assert dp_wavefront.LAUNCHES == launches[1]
     want = aligner.align_reads(on_cpu, g, reads, with_strand=True)
     assert ([(p, c.render() if c else None, s) for p, c, s in got]
             == [(p, c.render() if c else None, s) for p, c, s in want])
