@@ -39,9 +39,13 @@
 //          <= 64) or four.  Every shape the aligner sends on short reads;
 //   block  any other shape up to L1 = 11,621: a block a job, the carried
 //          diagonals in shared memory, the pointers a byte a cell in device
-//          memory (scratch from the caller).
-// A taller job's diagonals do not fit a block's shared memory: the plan
-// says so and the caller raises.
+//          memory (scratch from the caller);
+//   tall   a taller job, whose carried diagonals do not fit a block's shared
+//          memory: the block form with those diagonals in device scratch
+//          too, read back after each diagonal's barrier (in L2 right after
+//          they were written), as dp_wavefront.cu's read-back form reads
+//          its own output.  The caller may lower the threshold (`tall_l1`)
+//          to send a small job this way.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -188,6 +192,12 @@ struct BlockPointers {
   }
 };
 
+// bytes of a job's pointers in the block forms, a byte a cell, rounded up to
+// 16 so that the tall form's carried diagonals after them stay aligned
+__host__ __device__ size_t cells_bytes(int L1, int L2) {
+  return ((size_t)(L1 + 1) * (L2 + 1) + 15) & ~(size_t)15;
+}
+
 // One thread: the endpoint, the walk from (i0, j0), the op row, the runs.
 // `packed` is the job's row (4 + 2 * runs ints, runs zeroed), `ops` its op
 // row (D ints, all 3).
@@ -268,10 +278,13 @@ dp_stitch_warp_kernel(Fields f, Tables t, int B, int L1, int L2,
   }
 }
 
+// kTall: the carried diagonals in the job's scratch, after its pointers
+// (dp_stitch_plan's layout), else in shared memory.
+template <bool kTall>
 __global__ void __launch_bounds__(1024)
 dp_stitch_block_kernel(Fields f, Tables t, int L1, int L2, dp::Scoring s,
-                       Out out, unsigned char* pointer_scratch) {
-  extern __shared__ int carry[];
+                       Out out, unsigned char* scratch, size_t job_bytes) {
+  extern __shared__ int shared_carry[];
   const int b = blockIdx.x;
   const int D = L1 + L2 + 1;
   const int rows = L1 + 1;
@@ -281,7 +294,11 @@ dp_stitch_block_kernel(Fields f, Tables t, int L1, int L2, dp::Scoring s,
   for (int k = threadIdx.x; k < D; k += blockDim.x) ops[k] = 3;
   for (int k = 4 + threadIdx.x; k < width; k += blockDim.x) packed[k] = 0;
   const Job job = load_job(f, t, b, L1, L2);
-  unsigned char* cells = pointer_scratch + (size_t)b * rows * (L2 + 1);
+  unsigned char* cells = scratch + (size_t)b * job_bytes;
+  int* carry = shared_carry;
+  if constexpr (kTall) {
+    carry = reinterpret_cast<int*>(cells + cells_bytes(L1, L2));
+  }
   BlockSink sink{cells, L2 + 1, Endpoint{job.i0, job.jmax}};
   if (job.jmax >= 0) {  // the same for the whole block
     dp::sweep_block<false>(
@@ -311,31 +328,38 @@ size_t carry_bytes(int L1) {
 }  // namespace
 
 // The form the launcher takes at this shape (see the head of the file): 0
-// the warp form, 1 the block form, -1 none (the job is too tall); and the
-// bytes of pointer scratch it then needs from the caller for each job (0 in
-// the warp form).
-extern "C" int dp_stitch_plan(int L1, int L2, long long* pointer_bytes) {
-  *pointer_bytes = 0;
+// the warp form, 1 the block form, 2 the tall form, taken past L1 =
+// tall_l1 or where the block form's diagonals do not fit shared memory;
+// and the bytes of device scratch it then needs from the caller for each
+// job (0 in the warp form; the pointers, and in the tall form the carried
+// diagonals after them).
+extern "C" int dp_stitch_plan(int L1, int L2, int tall_l1,
+                              long long* scratch_bytes) {
+  *scratch_bytes = 0;
+  if (L1 > tall_l1 || carry_bytes(L1) > (size_t)dp::kMaxShared) {
+    *scratch_bytes = (long long)(cells_bytes(L1, L2) + carry_bytes(L1));
+    return 2;
+  }
   if (L1 + 1 <= dp::kWarpRows &&
       kWarpJobs * warp_pointer_bytes(L1, L2) <= (size_t)dp::kMaxShared) {
     return 0;
   }
-  if (carry_bytes(L1) > (size_t)dp::kMaxShared) return -1;
-  *pointer_bytes = (long long)(L1 + 1) * (L2 + 1);
+  *scratch_bytes = (long long)cells_bytes(L1, L2);
   return 1;
 }
 
 // bank (R, Lb) and genome (G,) int32; the eight job fields (B,) int32 each;
-// packed (B, 4 + 2 * runs) and ops (B, L1+L2+1) int32; pointer_scratch as
-// dp_stitch_plan asks (B times its size), else null.  All contiguous, on
-// the device.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// packed (B, 4 + 2 * runs) and ops (B, L1+L2+1) int32; scratch as
+// dp_stitch_plan(L1, L2, tall_l1) asks (B times its size, 16-byte
+// aligned), else null.  All contiguous, on the device.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dp_stitch_launch(
     const int* bank, int R, int Lb, const int* genome, int G, const int* row,
     const int* roff, const int* rlen, const int* rrev, const int* gstart,
     const int* glen, const int* grev, const int* want_nw, int B, int L1,
     int L2, int match, int mismatch, int gap_open, int gap_extend, int runs,
-    int* packed, int* ops, unsigned char* pointer_scratch, void* stream) {
+    int tall_l1, int* packed, int* ops, unsigned char* scratch,
+    void* stream) {
   if (B <= 0) return 0;
   if (R <= 0 || Lb <= 0 || G <= 0 || L1 < 0 || L2 < 0 || runs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -345,18 +369,20 @@ extern "C" int dp_stitch_launch(
   const dp::Scoring s{match, mismatch, gap_open, gap_extend};
   const Out out{packed, ops, runs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long pointer_bytes;
-  const int form = dp_stitch_plan(L1, L2, &pointer_bytes);
-  if (form < 0 || (pointer_bytes != 0 && pointer_scratch == nullptr)) {
+  long long job_bytes;
+  const int form = dp_stitch_plan(L1, L2, tall_l1, &job_bytes);
+  if (job_bytes != 0 && scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool two = warp_stripes(L1) == 2;
-  const size_t smem =
-      form == 0 ? kWarpJobs * warp_pointer_bytes(L1, L2) : carry_bytes(L1);
+  const size_t smem = form == 0   ? kWarpJobs * warp_pointer_bytes(L1, L2)
+                      : form == 1 ? carry_bytes(L1)
+                                  : 0;
   const void* kernel =
-      form == 1 ? reinterpret_cast<const void*>(dp_stitch_block_kernel)
-      : two     ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2>)
-                : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4>);
+      form == 2   ? reinterpret_cast<const void*>(dp_stitch_block_kernel<true>)
+      : form == 1 ? reinterpret_cast<const void*>(dp_stitch_block_kernel<false>)
+      : two       ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2>)
+                  : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -374,8 +400,13 @@ extern "C" int dp_stitch_launch(
   } else {
     int threads = ((L1 + 1 + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
-    dp_stitch_block_kernel<<<B, threads, smem, st>>>(f, t, L1, L2, s, out,
-                                                     pointer_scratch);
+    if (form == 1) {
+      dp_stitch_block_kernel<false><<<B, threads, smem, st>>>(
+          f, t, L1, L2, s, out, scratch, (size_t)job_bytes);
+    } else {
+      dp_stitch_block_kernel<true><<<B, threads, 0, st>>>(
+          f, t, L1, L2, s, out, scratch, (size_t)job_bytes);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,35 +6,10 @@
 // unc_sa walk, the inverse-SA window scan and the C[c] + rank adjunct;
 // the port's plain version is
 // bwt_tpu_torch/ops/service.py:service_round_plain), bit for bit in all 13
-// result columns on every lane, padding lanes included.  Per lane:
-//   * every lane forms the initial state of a search over its slice
-//     bank[row, off : off + ln] (a padding lane's is C['A'] of row 0, and
-//     is written out like any other);
-//   * mms, mms_ext (trailing N's stripped, inner N's resolved, when the
-//     round resolves), mms_continue (from the incoming interval, no
-//     initial-character step, N's resolved) and bsearch, bsearch_ext (raw:
-//     an N steps with rank(5) as it is) lanes run the search, each for its
-//     own number of steps; with a seed table, mms and raw lanes with
-//     ln > 0, at least seed_k effective characters and (when the round
-//     resolves) no N among the first seed_k start from their table row;
-//   * the walk (fm::sa_walk, at most length + 1 steps) from the unc_sa
-//     lane's row, the mms lane's last nonempty start, the final (possibly
-//     empty) start of mms_continue and raw lanes, row 0 otherwise;
-//   * the window scan of mms_ext and bsearch_ext lanes (fm::isa_chain):
-//     the smallest SA row of the window's positions that lies in the
-//     lane's interval, kept as a running minimum in two registers (the
-//     rows of distinct positions are distinct, so this is the plain
-//     version's first argmin over its (B, 32) array);
-//   * C[clip(c, 0, 4)] + rank(c, idx) for crank lanes, C[0] + rank(0, 0)
-//     for the others.
-// Out-of-range operands read as in the plain version: a bank row in
-// [-R, 0) wraps and one further out reads the int32 minimum in every
-// column; a column clips to the row.
-//
-// `walk` is the one batch-level decision of the plain version that a lane
-// cannot take alone: an `ext` round walks only if one of its lanes
-// consumes the walk's column, else that column is 0 on every lane.  The
-// host, which builds the opcodes, passes it in.
+// result columns on every lane, padding lanes included.  The lane's body
+// is svc::lane (service_lane.cuh), which the rna_seq automaton
+// (rnaseq_automaton.cu) shares; this file is the shell that loads a lane's
+// seven fields, calls it, stores the columns and raises the walk's flag.
 //
 // Output: (13 B + 2) int32, column c at [c B, (c + 1) B), then the flag
 // (count of walks that overran, and B - the first such lane), zeroed by
@@ -50,16 +25,11 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "fm_search.cuh"
+#include "service_lane.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kCols = 13;
-constexpr int kW = 32;  // positions of one window
-
-enum Op { kNone = 0, kMms = 1, kCont = 2, kBsearch = 3, kUnc = 4, kCrank = 5,
-          kMext = 6, kBext = 7 };
 
 // The seven (B,) lane fields.
 struct Fields {
@@ -69,150 +39,33 @@ struct Fields {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 service_kernel(const T* __restrict__ bank, int R, int Lb, Fields f, int B,
-               int resolve, int ext, int walk, fm::SeedRows seed, fm::Index ix,
+               svc::Flags fl, fm::SeedRows seed, fm::Index ix,
                fm::Samples sa, fm::Isa isa, int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const fm::Consts k = fm::load_consts(ix);
-  const int opc = __ldg(f.opc + b);
-  const int off = __ldg(f.off + b);
-  const int ln = __ldg(f.ln + b);
-  const int sp = __ldg(f.sp + b);
-  const int ep = __ldg(f.ep + b);
-  const bool is_mms = opc == kMms || opc == kMext;
-  const bool is_cont = opc == kCont;
-  const bool is_bs = opc == kBsearch || opc == kBext;
-
-  int brow = __ldg(f.row + b);
-  if (brow < 0) brow += R;
-  const bool no_row = brow < 0 || brow >= R;
-  fm::PatternView<T, false> pat(bank, R, no_row ? 0 : brow, Lb);
-  auto char_at = [&](int ci) { return no_row ? INT_MIN : pat.at(ci); };
-
-  // trailing-N strip, slice-aware: the first step j in [0, ln) whose
-  // column top - j lies in the row and holds no N
-  const int top = fm::wsub(fm::wadd(off, ln), 1);  // column of step 0
-  int skips = 0;
-  if (resolve && is_mms) {
-    int first = INT_MAX;
-    for (int j = max(0, top - (Lb - 1)); j < ln && top - j >= 0; ++j) {
-      if (char_at(top - j) != fm::kN) {
-        first = j;
-        break;
-      }
-    }
-    skips = max(min(first, ln), 0);
+  const svc::Cols c = svc::lane<T>(
+      bank, R, Lb, __ldg(f.opc + b), __ldg(f.row + b), __ldg(f.off + b),
+      __ldg(f.ln + b), __ldg(f.sp + b), __ldg(f.ep + b), __ldg(f.idx + b), fl,
+      seed, ix, k, sa, isa);
+  if (c.overrun) {
+    fm::raise_flag(out + static_cast<size_t>(svc::kCols) * B, B, b);
   }
-  const int eff = is_cont ? fm::wadd(ln, 1)
-                          : max(is_mms ? fm::wsub(ln, skips) : ln, 1);
-
-  fm::Lane r;
-  bool seeded = false;
-  if (seed.rows != nullptr && (is_mms || is_bs) && ln > 0 && eff >= seed.k) {
-    unsigned key = 0;
-    bool has_n = false;
-    for (int t = 0; t < seed.k; ++t) {
-      const int j = skips + t;
-      const int p = top - j;
-      if (j >= ln || p < 0 || p >= Lb) continue;
-      const int c = char_at(p);
-      has_n = has_n || c == fm::kN;
-      key += static_cast<unsigned>(c) << (2 * min(t, 15));
-    }
-    if (!(resolve && has_n)) {
-      seeded = true;
-      fm::load_seed_row(seed, static_cast<int>(key), r);
-    }
-  }
-  const int tsh = seeded ? seed.k - 1 : 0;
-  // the column of step t is base - t, clipped to the row
-  const int base = fm::wsub(fm::wsub(fm::wadd(off, eff), 1), tsh);
-  bool incoming_empty = false;
-  if (!seeded) {
-    if (is_cont) {
-      r.start = sp;
-      r.end = ep;
-    } else {
-      int c0 = char_at(base);
-      // ln <= 0 is reference UB: the search sees 'A' and takes no steps
-      if ((is_mms || is_bs) && ln <= 0) c0 = 0;
-      if (resolve && is_mms && c0 == fm::kN) c0 = 0;  // all-N read -> 'A'
-      r.start = fm::take_c(k, c0);
-      r.end = fm::take_c(k, fm::wadd(c0, 1));
-    }
-    r.sp = r.start;
-    r.ep = r.end;
-    r.alive = r.end > r.start;
-    incoming_empty = is_cont && !r.alive;
-    r.nmatched = (r.alive && !is_cont) ? 1 : 0;
-  }
-  if (is_mms || is_cont || is_bs) {
-    const bool resolve_lane = resolve && (is_mms || is_cont);
-    const int last = fm::wsub(eff, 1);
-    for (int t = 1; r.alive && fm::wadd(t, tsh) <= last; ++t) {
-      fm::lf_step(ix, k, r, char_at(fm::wsub(base, t)), resolve_lane);
-    }
-  }
-  const int matched_mms = fm::wadd(r.nmatched, skips);
-
-  const int walk0 = opc == kUnc ? __ldg(f.idx + b)
-                    : opc == kMms ? r.sp
-                    : (is_cont || is_bs) ? r.start : 0;
-  int pos = 0;
-  if (walk) {
-    const fm::Walk w = fm::sa_walk(ix, k, sa, walk0, sa.length + 1);
-    pos = w.pos;
-    if (w.unsampled) {
-      fm::raise_flag(out + static_cast<size_t>(kCols) * B, B, b);
-      pos = walk0;
-    }
-  }
-
-  int wbest = -1, wrow = -1;
-  if (ext && (opc == kMext || opc == kBext)) {
-    // mms_ext: |pos + seglen - curpos| <= curgap + 3 as a window over the
-    // mms interval; bsearch_ext: the caller's window over the final one
-    const bool m = opc == kMext;
-    const int gap3 = fm::wadd(ep, 3);
-    const int wlo = m ? fm::wsub(fm::wsub(sp, matched_mms), gap3) : sp;
-    const int wwid =
-        min(max(m ? fm::wadd(fm::wadd(gap3, gap3), 1) : ep, 0), kW);
-    const int ilo = m ? r.sp : r.start;
-    const int ihi = m ? r.ep : r.end;
-    int best = INT_MAX, best_j = 0;
-    fm::isa_chain(ix, k, isa, wlo, wwid, kW, [&](int j, int row) {
-      if (row >= ilo && row < ihi && row >= 0 && row < best) {
-        best = row;
-        best_j = j;
-      }
-    });
-    if (best != INT_MAX) {
-      wbest = fm::wadd(wlo, best_j);
-      wrow = best;
-    }
-  }
-
-  const bool is_crank = opc == kCrank;
-  const int c_arg = min(max(is_crank ? sp : 0, 0), 4);
-  const int crank = fm::wadd(
-      fm::take_c(k, c_arg),
-      fm::rank(ix, k, c_arg, is_crank ? __ldg(f.idx + b) : 0));
-
   int* o = out + b;
   const size_t Bs = static_cast<size_t>(B);
-  o[0 * Bs] = matched_mms;
-  o[1 * Bs] = fm::wsub(r.nmatched, incoming_empty ? 1 : 0);
-  o[2 * Bs] = r.start;
-  o[3 * Bs] = r.end;
-  o[4 * Bs] = r.sp;
-  o[5 * Bs] = r.ep;
-  o[6 * Bs] = r.nmatched;
-  o[7 * Bs] = r.alive ? 1 : 0;
-  o[8 * Bs] = skips;
-  o[9 * Bs] = pos;
-  o[10 * Bs] = crank;
-  o[11 * Bs] = wbest;
-  o[12 * Bs] = wrow;
+  o[0 * Bs] = c.mms_m;
+  o[1 * Bs] = c.cont_m;
+  o[2 * Bs] = c.start;
+  o[3 * Bs] = c.end;
+  o[4 * Bs] = c.osp;
+  o[5 * Bs] = c.oep;
+  o[6 * Bs] = c.nm;
+  o[7 * Bs] = c.alive;
+  o[8 * Bs] = c.skips;
+  o[9 * Bs] = c.pos;
+  o[10 * Bs] = c.crank;
+  o[11 * Bs] = c.wbest;
+  o[12 * Bs] = c.wrow;
 }
 
 }  // namespace
@@ -237,16 +90,17 @@ extern "C" int service_launch(
   const fm::Samples sa{sa_samples, nsamples, shift, length};
   const fm::Isa isa{isa_samples, nisa, shift, length};
   const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
+  const svc::Flags fl{resolve != 0, ext != 0, walk != 0};
   const int blocks = (B + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 4) {
     service_kernel<int><<<blocks, kThreads, 0, s>>>(
-        static_cast<const int*>(bank), R, Lb, f, B, resolve, ext, walk, seed,
-        ix, sa, isa, out);
+        static_cast<const int*>(bank), R, Lb, f, B, fl, seed, ix, sa, isa,
+        out);
   } else if (elem == 1) {
     service_kernel<uint8_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(bank), R, Lb, f, B, resolve, ext, walk,
-        seed, ix, sa, isa, out);
+        static_cast<const uint8_t*>(bank), R, Lb, f, B, fl, seed, ix, sa,
+        isa, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

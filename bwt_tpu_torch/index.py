@@ -96,9 +96,24 @@ def from_numpy(arrays, device=None) -> FMIndex:
     fields (``bwt_words``, ``buckets``, ``sa_samples``, ``C``,
     ``endloc``, ``length``, ``sa_rate`` and optional ``isa_samples``) —
     e.g. ``{k: np.asarray(getattr(fmi, k)) ...}`` of an index built by
-    the JAX package, or an npz file's contents."""
+    the JAX package, or an npz file's contents.  The wide (int64) layout,
+    12-int bucket rows and int64 ``sa_samples`` / ``C`` / ``endloc`` /
+    ``isa_samples``, is not ported and raises ValueError."""
     device = torch.device(device) if device is not None else default_device()
     isa = arrays["isa_samples"] if "isa_samples" in arrays else None
+    buckets = np.asarray(arrays["buckets"])
+    if buckets.ndim != 2 or buckets.shape[1] != 8:
+        raise ValueError(
+            f"buckets of shape {buckets.shape}: the wide (int64) index layout "
+            f"(12-int bucket rows) is not ported; the port reads the int32 "
+            f"layout's (n, 8) rows")
+    wide = [k for k in ("sa_samples", "C", "endloc", "isa_samples")
+            if k in arrays and arrays[k] is not None
+            and np.asarray(arrays[k]).dtype == np.int64]
+    if wide:
+        raise ValueError(
+            f"{', '.join(wide)} int64: the wide (int64) index layout is not "
+            f"ported; the port reads the int32 layout")
     return FMIndex(
         bwt_words=_i32(arrays["bwt_words"], device),
         buckets=_i32(arrays["buckets"], device),

@@ -63,6 +63,7 @@ import time
 import numpy as np
 import torch
 
+from bwt_tpu_torch import codec
 from bwt_tpu_torch.index import FMIndex
 from bwt_tpu_torch.ops import dp_wavefront
 from bwt_tpu_torch.ops import search
@@ -90,6 +91,16 @@ def _pow2(n: int, floor: int = 8) -> int:
 
 def _pad16(n: int, floor: int = 16) -> int:
     return max(floor, -(-n // 16) * 16)
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``.  To the card through pinned memory and a
+    copy that does not wait for the kernels already queued (a copy from
+    pageable memory would)."""
+    t = torch.from_numpy(arr)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def dp_shape(rlen, glen):
@@ -210,6 +221,63 @@ def _ops_to_runs(ops_row: np.ndarray, i_resid: int, j_resid: int):
 # --------------------------------------------------------------------------
 
 
+class _LazyRowViews(list):
+    """A list of per-read bank-row views whose elements materialize on
+    first access.  add_reads_batch installs one per batch; ``len()``
+    answers without materializing (add_reads_batch's empty-bank check and
+    add_read's handle only need the count).  Any element access, iteration
+    or mutation first fills the list from the (rows, lens, stride)
+    source."""
+
+    def __init__(self, rows, lens, stride):
+        super().__init__()
+        self._src = (rows, lens, stride)
+
+    def _fill(self):
+        if self._src is not None:
+            rows, lens, stride = self._src
+            self._src = None
+            super().extend(
+                rows[k, : lens[k // stride]] for k in range(rows.shape[0]))
+        return self
+
+    def __len__(self):
+        if self._src is not None:
+            return self._src[0].shape[0]
+        return super().__len__()
+
+    def __iter__(self):
+        return super(_LazyRowViews, self._fill()).__iter__()
+
+    def __getitem__(self, i):
+        return super(_LazyRowViews, self._fill()).__getitem__(i)
+
+    def append(self, x):
+        super(_LazyRowViews, self._fill()).append(x)
+
+    def extend(self, xs):
+        super(_LazyRowViews, self._fill()).extend(xs)
+
+
+_SEED_CACHE: dict = {}
+
+
+def _seed_for(fmi: FMIndex, k: int) -> search.SeedTable:
+    """Per-(index, k) seed-table cache, keyed by the buckets tensor's
+    identity; the entry holds a strong reference to that tensor so that
+    its id cannot be reused while cached.  Bounded (a k = 12 table is
+    100 MB): a fifth entry evicts the cache wholesale."""
+    key = (id(fmi.buckets), k)
+    ent = _SEED_CACHE.get(key)
+    if ent is not None and ent[0] is fmi.buckets:
+        return ent[1]
+    tab = search.build_seed_table(fmi, k=k)
+    if len(_SEED_CACHE) >= 4:
+        _SEED_CACHE.clear()
+    _SEED_CACHE[key] = (fmi.buckets, tab)
+    return tab
+
+
 class QueryService:
     """Device state for executor runs: the FM-index, the genome codes
     (for nw/sw requests) and the per-run pattern bank, all on the
@@ -219,9 +287,10 @@ class QueryService:
     one launch of the stitch kernel on a card (its plain version on the
     CPU); "plain" forces the plain version on any device, to compare the
     two.  ``svc_impl`` does the same for the fused service round and the
-    service kernel.  The bank is kept twice on the device: (R, Lb) int32
-    for the DP stitch and the plain service, and a uint8 copy that the
-    service kernel reads (a quarter of the sectors a slice)."""
+    service kernel.  The bank is uploaded once, as the (R, Lb) uint8 codes
+    that the service kernel and the automaton read (``bank8``); its int32
+    copy (``bank``) is made at first need, by the DP stitch or the plain
+    service."""
 
     def __init__(self, fmi: FMIndex, genome=None, config=None):
         from bwt_tpu_torch.config import DEFAULT
@@ -243,11 +312,35 @@ class QueryService:
                 np.asarray(genome, np.uint8)).to(self.device).to(torch.int32)
         self._reads: list[np.ndarray] = []
         self._has_n = False
-        self.bank = None
-        self.bank8 = None
+        self.bank8 = None  # (R, Lb) uint8 on the device, once built
+        self._bank32 = None
+        self._seed = None
         self.dp_impl = "kernel"
         self.svc_impl = "kernel"
-        self.last_stats: dict = {}  # the last executor run's counters
+        self.last_stats: dict = {}  # the last run's counters
+
+    @property
+    def seed(self) -> search.SeedTable | None:
+        """The seed table the device automaton's searches start from
+        (``config.automaton_seed_k``; None when 0), built at first use and
+        cached per (index, k) across services.  On the card at the
+        configured k (one launch of the seed-table kernel); on the CPU at
+        ``min(k, 6)``, as ``bwt_tpu`` clamps off the TPU.  The table
+        changes no result, only the steps a search takes."""
+        if self._seed is None and self.config.automaton_seed_k:
+            k = self.config.automaton_seed_k
+            if not search._on_card(self.fmi):
+                k = min(k, 6)  # a 4^12-row build is the card's size
+            self._seed = _seed_for(self.fmi, k)
+        return self._seed
+
+    @property
+    def bank(self) -> torch.Tensor:
+        """The bank as (R, Lb) int32 codes on the device, converted from
+        ``bank8`` at first need."""
+        if self._bank32 is None:
+            self._bank32 = self._ensure_bank8().to(torch.int32)
+        return self._bank32
 
     def add_read(self, codes) -> int:
         """Register a read's codes; returns its bank row handle."""
@@ -255,24 +348,74 @@ class QueryService:
         self._reads.append(arr)
         if (arr == 5).any():
             self._has_n = True
-        self.bank = self.bank8 = None
+        self.bank8 = self._bank32 = None
         return len(self._reads) - 1
+
+    def add_reads_batch(self, codes_list, *, with_revcomp: bool = False):
+        """Register a batch of reads at once on an empty bank: read k at
+        row base + k, or with ``with_revcomp`` at base + 2k and its reverse
+        complement at base + 2k + 1.  ``codes_list`` is a (n, L) code
+        matrix or a list of code arrays.  Builds the bank on the host and
+        uploads it in one copy; returns (first_row, lengths)."""
+        base = len(self._reads)
+        if base:
+            raise ValueError("add_reads_batch requires an empty bank")
+        n = len(codes_list)
+        stride = 2 if with_revcomp else 1
+        is_mat = isinstance(codes_list, np.ndarray) and codes_list.ndim == 2
+        if is_mat:
+            Lb = _pad16(max(codes_list.shape[1], 1))
+            lens = np.full((n,), codes_list.shape[1], np.int32)
+            uniform = n > 0
+        else:
+            Lb = _pad16(max((len(r) for r in codes_list), default=1))
+            lens = np.fromiter((len(r) for r in codes_list), np.int32, n)
+            uniform = n > 0 and bool((lens == lens[0]).all())
+        mat = np.zeros((_pow2(stride * n), Lb), np.uint8)
+        comp = codec._COMPLEMENT
+        if uniform:
+            fwd = (codes_list.astype(np.uint8, copy=False) if is_mat else
+                   np.stack([np.asarray(r, np.uint8) for r in codes_list]))
+            mat[0 : stride * n : stride, : lens[0]] = fwd
+            if with_revcomp:
+                mat[1 : 2 * n : 2, : lens[0]] = comp[fwd][:, ::-1]
+        else:
+            for k, r in enumerate(codes_list):
+                arr = np.asarray(r, np.uint8)
+                mat[stride * k, : len(arr)] = arr
+                if with_revcomp:
+                    mat[stride * k + 1, : len(arr)] = comp[arr][::-1]
+        rows = mat[: stride * n]
+        # the per-read row views materialize only if add_read or a rebuild
+        # of the bank needs them
+        self._reads = _LazyRowViews(rows, lens, stride)
+        self._has_n = int(rows.max(initial=0)) == 5
+        self.bank8 = _to_device(mat, self.device)
+        self._bank32 = None
+        return base, lens
+
+    def read_lengths(self) -> np.ndarray:
+        """(n_reads,) int32 lengths of the registered reads, without
+        materializing a batch's row views."""
+        r = self._reads
+        if isinstance(r, _LazyRowViews) and r._src is not None:
+            return np.asarray(r._src[1], np.int32)
+        return np.fromiter((len(x) for x in r), np.int32, len(r))
 
     def reset_reads(self) -> None:
         """Drop all registered reads."""
         self._reads = []
         self._has_n = False
-        self.bank = self.bank8 = None
+        self.bank8 = self._bank32 = None
 
-    def _ensure_bank(self):
-        if self.bank is None:
+    def _ensure_bank8(self) -> torch.Tensor:
+        if self.bank8 is None:
             Lb = _pad16(max((len(r) for r in self._reads), default=1))
             mat = np.zeros((_pow2(len(self._reads)), Lb), np.uint8)
             for k, r in enumerate(self._reads):
                 mat[k, : len(r)] = r
             self.bank8 = torch.from_numpy(mat).to(self.device)
-            self.bank = self.bank8.to(torch.int32)
-        return self.bank
+        return self.bank8
 
 
 class BatchExecutor:
@@ -308,8 +451,8 @@ class BatchExecutor:
         """One upload of the (7, B) lane fields, one service round, one
         copy back of its packed result, whose tail is the walk's flag."""
         t0 = time.perf_counter()
-        bank = self.svc._ensure_bank()
         plain = self.svc.svc_impl == "plain"
+        bank = self.svc.bank if plain else self.svc._ensure_bank8()
         f = np.zeros((7, _pow2(len(items))), np.int32)  # opc row off ln sp ep idx
         ext = walk = False
         for k, (_, r) in enumerate(items):
@@ -329,7 +472,7 @@ class BatchExecutor:
             walk = walk or op in _POS_OPS
         before = service.SERVICE_LAUNCHES
         out = service.service_round_packed(
-            self.fmi, bank if plain else self.svc.bank8, *self._lanes(f),
+            self.fmi, bank, *self._lanes(f),
             resolve=self.svc._has_n, ext=ext, walk=walk or not ext,
             plain=plain).cpu().numpy()
         service.service_raise(self.fmi, out)
@@ -391,7 +534,7 @@ class BatchExecutor:
         if self.svc.genome_dev is None:
             raise ValueError(
                 "nw/sw requests require a genome-backed QueryService")
-        bank = self.svc._ensure_bank()
+        bank = self.svc.bank
         buckets: dict[tuple[int, int], list] = {}
         for i, r in items:
             buckets.setdefault(dp_shape(r[3], r[6]), []).append((i, r))

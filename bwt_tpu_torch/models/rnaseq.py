@@ -25,17 +25,26 @@ character (e.g. :49-50, :60-61), so a read with an N (code 5) reads
 search sees the rank(5) that the fused service computes, and the result
 equals ``bwt_tpu``'s host engine, not the C binary's garbage.
 
-Ported: the host-generator engine.  ``bwt_tpu``'s device automaton
-(``rna_seq_device``) is not ported yet (ROADMAP.md).
+Two engines with equal results: the host generators over the executor
+(``engine="host"``), and the device automaton (``engine="device"``,
+:func:`rna_seq_device`), the whole main loop a read on the device, one launch
+of the K9 kernel a chunk of reads (:mod:`bwt_tpu_torch.ops.automaton`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from bwt_tpu_torch import codec
 from bwt_tpu_torch.index import FMIndex
-from bwt_tpu_torch.models.batch_exec import BatchExecutor, QueryService
+from bwt_tpu_torch.models.batch_exec import (
+    BatchExecutor, QueryService, _to_device)
+from bwt_tpu_torch.ops import automaton
+
+# test hook: a nonzero value overrides the automaton's iteration cap, to
+# force the capped reads' re-run on the host
+_TEST_CAP = 0
 
 
 def _eval_mms_search(r: dict, length: int, cutoff: int):
@@ -217,6 +226,141 @@ def rna_seq_gen(row: int, length: int, anchor_cutoff: int = 14,
     return mmspos
 
 
+def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
+                   mesh=None):
+    """:func:`rna_seq` on the device automaton: one launch of the K9
+    kernel a chunk of ``config.search_batch`` reads (its plain version on
+    the CPU, or anywhere with ``service.svc_impl = "plain"``); the same
+    results as the host engine.  Needs ``fmi.isa_samples`` and
+    ``cont_cutoff + 6 <= 32``, else raises ValueError.  Writes its counters
+    into ``service.last_stats``: ``automaton_launches``, ``chunks``,
+    ``capped`` (reads re-run on the host at the cap) and ``max_iters``
+    (the most iterations a read ran).
+
+    The cyclic garbage collector is paused for the call: the engine
+    allocates no cycles."""
+    import gc
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "rna_seq(mesh=...) is not ported (ROADMAP Queue 1: "
+            "multi-device)")
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return _rna_seq_device_inner(fmi, reads, config=config,
+                                     service=service)
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+def _rna_seq_device_inner(fmi, reads, *, config=None, service=None):
+    from bwt_tpu_torch.config import DEFAULT
+
+    cfg = config or (service.config if service is not None else DEFAULT)
+    if fmi.isa_samples is None:
+        raise ValueError("rna_seq_device requires an index with isa_samples")
+    if cfg.rnaseq_cont_cutoff + 6 > 32:
+        raise ValueError("rna_seq_device requires cont_cutoff + 6 <= 32")
+    svc = service if service is not None else QueryService(fmi, config=cfg)
+    is_mat = isinstance(reads, np.ndarray) and reads.ndim == 2
+    if is_mat:
+        codes_list = np.ascontiguousarray(reads).astype(np.uint8, copy=False)
+    else:
+        codes_list = [codec.encode_read(r) if isinstance(r, (str, bytes))
+                      else np.asarray(r, np.uint8) for r in reads]
+    n = len(codes_list)
+    dev = fmi.device
+    plain = svc.svc_impl == "plain"
+    seed = svc.seed  # built once, on the caller's service
+    stats = dict(automaton_launches=0, chunks=0, capped=0, max_iters=0)
+
+    def dispatch(svc_i, sub, resolve):
+        """Register a chunk, upload its bank, launch the automaton and
+        queue the copy back of its packed output; returns the host tensor
+        and the event that marks the copy done, without synchronising."""
+        svc_i.reset_reads()
+        m = len(sub)
+        _base, rl = svc_i.add_reads_batch(sub)
+        bank = svc_i.bank8
+        R = bank.shape[0]
+        lens = np.zeros(R, np.int32)
+        lens[:m] = rl
+        live0 = torch.arange(R, device=dev) < m
+        before = automaton.AUTOMATON_LAUNCHES
+        out = automaton.rna_seq_automaton_packed(
+            fmi, bank, _to_device(lens, dev), live0,
+            None if seed is None else seed.rows,
+            ac=cfg.rnaseq_anchor_cutoff, cc=cfg.rnaseq_cont_cutoff,
+            resolve=svc_i._has_n if resolve is None else resolve,
+            cap_steps=_TEST_CAP, seed_k=0 if seed is None else seed.k,
+            plain=plain)
+        stats["automaton_launches"] += automaton.AUTOMATON_LAUNCHES - before
+        stats["chunks"] += 1
+        if dev.type != "cuda":
+            return out, None
+        # queued right behind this chunk's launch, so that its fetch does
+        # not wait for the next chunk's
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def fetch(pend, sub):
+        """A chunk's results, once its copy back is done; reads still live
+        at the iteration cap re-run on the host generators (their device
+        state is mid-flight), which gives their values unchanged."""
+        host, done = pend
+        if done is not None:
+            done.synchronize()
+        out = host.numpy()
+        automaton.automaton_raise(fmi, out)
+        m = len(sub)
+        res, capped, iters = (a[:m] for a in automaton.unpack(out))
+        res = res.copy()
+        stats["max_iters"] = max(stats["max_iters"],
+                                 int(iters.max(initial=0)))
+        bad = np.flatnonzero(capped)
+        if bad.size:
+            stats["capped"] += int(bad.size)
+            svc_f = QueryService(fmi, config=cfg)
+            gens = []
+            for k in bad:
+                row = svc_f.add_read(sub[k])
+                gens.append(rna_seq_gen(
+                    row, len(sub[k]), cfg.rnaseq_anchor_cutoff,
+                    cfg.rnaseq_cont_cutoff, True, cfg.rnaseq_spec_depth))
+            res[bad] = np.asarray(BatchExecutor(svc_f).run(gens), np.int32)
+        return res
+
+    chunk = cfg.search_batch
+    if n <= chunk:
+        res = fetch(dispatch(svc, codes_list, None), codes_list)
+        svc.last_stats = stats
+        return res
+    # a software pipeline over the chunks: a chunk's bank is built and
+    # uploaded, and its launch queued, while the previous chunk runs; the
+    # previous chunk's fetch comes after.  resolve is decided over all the
+    # reads; each chunk's service keeps its bank alive until its fetch
+    resolve = (bool((codes_list == 5).any()) if is_mat
+               else any(bool((r == 5).any()) for r in codes_list))
+    out = np.empty(n, np.int32)
+    prev = None
+    for lo in range(0, n, chunk):
+        sub = codes_list[lo : lo + chunk]
+        pend = dispatch(QueryService(fmi, config=cfg), sub, resolve)
+        if prev is not None:
+            plo, psub, ppend = prev
+            out[plo : plo + len(psub)] = fetch(ppend, psub)
+        prev = (lo, sub, pend)
+    plo, psub, ppend = prev
+    out[plo : plo + len(psub)] = fetch(ppend, psub)
+    svc.last_stats = stats
+    return out
+
+
 def rna_seq(fmi: FMIndex, reads, *, config=None, service=None,
             engine: str = "auto", mesh=None):
     """Batched spliced alignment: the first anchor's position per
@@ -224,23 +368,30 @@ def rna_seq(fmi: FMIndex, reads, *, config=None, service=None,
     :class:`~bwt_tpu_torch.models.batch_exec.QueryService` keeps device
     state across calls.
 
-    ``engine``: "auto" and "host" run the host-generator engine, whose
-    output equals the JAX package's for either of its engines.  The
-    device automaton ("device") and ``mesh`` are not ported yet."""
+    ``engine``: "device" runs the device automaton (:func:`rna_seq_device`),
+    "host" the host generators over the executor; "auto" (the default)
+    takes the automaton when it can run (the index has ``isa_samples`` and
+    ``cont_cutoff + 6 <= 32``), as ``bwt_tpu`` does.  The results are the
+    same either way, and equal the JAX package's for either of its
+    engines.  ``mesh`` is not ported yet."""
     from bwt_tpu_torch.config import DEFAULT
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "device" or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "the rna_seq device automaton and mesh= are not ported yet "
-            "(ROADMAP Queue 1: the device automatons; multi-device); use "
-            "engine='host' or 'auto'")
+            "rna_seq(mesh=...) is not ported (ROADMAP Queue 1: "
+            "multi-device)")
     cfg = config or (service.config if service is not None else DEFAULT)
     if cfg.elastic_fallback:
         raise NotImplementedError(
             "config.elastic_fallback is not ported (ROADMAP Queue 1: "
             "multi-device and recovery)")
+    use_dev = engine == "device" or (
+        engine == "auto" and fmi.isa_samples is not None
+        and cfg.rnaseq_cont_cutoff + 6 <= 32)
+    if use_dev:
+        return rna_seq_device(fmi, reads, config=cfg, service=service)
     svc = service if service is not None else QueryService(fmi, config=cfg)
     svc.reset_reads()
     gens = []

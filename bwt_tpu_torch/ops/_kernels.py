@@ -111,9 +111,9 @@ def library() -> ctypes.CDLL:
             LL = ctypes.POINTER(ctypes.c_longlong)
             for name, argtypes in (
                     ("dp_wavefront_launch", [P] * 4 + [I] * 7 + [P]),
-                    ("dp_stitch_plan", [I, I, LL]),
+                    ("dp_stitch_plan", [I, I, I, LL]),
                     ("dp_stitch_launch",
-                     [P, I, I, P, I] + [P] * 8 + [I] * 8 + [P] * 4),
+                     [P, I, I, P, I] + [P] * 8 + [I] * 9 + [P] * 4),
                     ("backward_search_launch",
                      [P, P, I, I, I, I, I, P, P, P, I, I, P, I, P, P, P, P]),
                     ("unc_sa_launch",
@@ -128,7 +128,10 @@ def library() -> ctypes.CDLL:
                                                         P]),
                     ("isa_window_launch",
                      [P, P, I, I, P, I, P, P, P, I, I, I, P, P]),
-                    ("seed_rows_launch", [I, P, I, P, P, P, P])):
+                    ("seed_rows_launch", [I, P, I, P, P, P, P]),
+                    ("rnaseq_automaton_launch",
+                     [P, I, I, P, P, I, I, I, I, P, I, I, P, I, P, P, P, I,
+                      I, I, P, I, P, P])):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -47,6 +47,12 @@ STITCH_LAUNCHES = 0
 # is decoded from its raw op row by the caller
 RLE_R = 40
 
+# the tallest DP job (L1, read rows) the stitch kernel's block form takes,
+# its carried diagonals in shared memory; a taller one takes the read-back
+# form, which keeps them in device scratch.  A test hook: lowering it sends a
+# small job through the read-back form
+_TALL_ROWS = 11621
+
 _NEG = -(1 << 30)
 
 
@@ -272,8 +278,8 @@ def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
     RLE_R runs' ops and their lengths in walk order (:func:`unpack` splits
     it); ops (B, L1+L2+1) is the raw op row, column s = diagonal L1+L2-s,
     3 = no op.  On the card this is one launch of ``csrc/dp_stitch.cu``
-    (jobs of up to 11,621 rows: a taller one raises); on the CPU,
-    :func:`dp_stitch_plain`."""
+    (a job past ``_TALL_ROWS`` read rows keeps its carried diagonals in
+    device scratch); on the CPU, :func:`dp_stitch_plain`."""
     global STITCH_LAUNCHES
     fields = (row, roff, rlen, rrev, gstart, glen, grev, want_nw)
     _check_stitch(bank, genome, fields)
@@ -292,16 +298,14 @@ def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
     ops = torch.empty((B, L1 + L2 + 1), dtype=torch.int32, device=dev)
     if B:
         lib = _kernels.library()
-        ptr_bytes = ctypes.c_longlong()
-        if lib.dp_stitch_plan(L1, L2, ctypes.byref(ptr_bytes)) < 0:
-            raise ValueError(
-                f"a DP job of {L1 + 1} rows is too tall for the stitch "
-                f"kernel: its carried diagonals do not fit a block's shared "
-                f"memory")
-        ptrs = None  # a byte a cell, where the job is too tall for a warp
-        if ptr_bytes.value:
-            ptrs = torch.empty(B * ptr_bytes.value, dtype=torch.uint8,
-                               device=dev)
+        job_bytes = ctypes.c_longlong()
+        lib.dp_stitch_plan(L1, L2, _TALL_ROWS, ctypes.byref(job_bytes))
+        # the pointers a byte a cell where the job is too tall for a warp,
+        # and the carried diagonals where it is too tall for shared memory
+        scratch = None
+        if job_bytes.value:
+            scratch = torch.empty(B * job_bytes.value, dtype=torch.uint8,
+                                  device=dev)
         bank, genome = bank.contiguous(), genome.contiguous()
         fields = [f.contiguous() for f in fields]
         with torch.cuda.device(dev):
@@ -309,8 +313,8 @@ def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
             err = lib.dp_stitch_launch(
                 bank.data_ptr(), *bank.shape, genome.data_ptr(),
                 genome.shape[0], *(f.data_ptr() for f in fields), B, L1, L2,
-                *scoring, RLE_R, P.data_ptr(), ops.data_ptr(),
-                ptrs.data_ptr() if ptrs is not None else None, stream)
+                *scoring, RLE_R, _TALL_ROWS, P.data_ptr(), ops.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, stream)
         if err != 0:
             raise RuntimeError(f"dp_stitch kernel launch failed: CUDA error "
                                f"{err}")

@@ -13,7 +13,9 @@ the card's name and power limit:
      (the packed end cells, residuals and runs; the op rows) must be
      bit-equal; the stitch is also timed beside the path it replaces
      (gather, fill kernel, endpoint, one eager step a diagonal,
-     run-length ops);
+     run-length ops), and its read-back form (the carried diagonals in
+     device scratch) at the taller shape through its threshold's test hook
+     and at a 12,000-row job;
   3. index build of a 2^25-base random genome at sa_sample_rate 4,
      checked with verify_suffix_array;
   4. locate of 2^20 random 30-mers cut from the genome, plain and with a
@@ -52,26 +54,32 @@ the card's name and power limit:
      uint8 code array): two anchor_scan launches a chunk and no K3 or K4,
      every forward read anchors at its origin, an 8,192-read subset gives
      the same result dict through the plain versions on the CPU;
-  10. rna_seq's host engine on 2^16 reads of 50 bp cut from the genome
-     with one base complemented (rnaseqtest.c's self-benchmark, cut from
-     its 1 M reads because the host generators set the pace): one K7 launch
-     a service call and no other kernel, unmutated reads report their
-     origin and so does a share of those mutated in their last bases, a
-     1,024-read subset equal through the plain
-     service on the card and on a CPU copy of the index; 4,096 of the
-     reads on the index without isa_samples (the unc_sa_range chunk scan,
-     K4's path), equal; and 4,096 isa_range requests through the executor
-     (K6's path), every row walked back to its position;
-  9. one torch.profiler window over each exact-search path, last because
-     the profiler slows every later launch of its process: locate plain
-     and seeded (device busy time, device ops), and search_reads, whose
-     wall it splits into host encode, upload, kernels and download.
+  10. rna_seq on 2^16 reads of 50 bp cut from the genome with one base
+     complemented (rnaseqtest.c's self-benchmark, cut from its 1 M reads):
+     the default engine, the device automaton, one K9 launch a chunk of
+     2^15 reads and no other kernel, unmutated reads report their origin
+     and so does a share of those mutated in their last bases; the host
+     engine on the same reads (one K7 launch a service call) equal on all
+     of them; a 1,024-read subset equal through the plain automaton on the
+     card and on a CPU copy of the index; 4,096 reads at a forced cap of 4
+     iterations (capped reads re-run on the host), equal; K9 on one chunk
+     against its plain version, bit-equal, timed beside its bound, with the
+     iterations of its longest read; 4,096 of the reads on the index
+     without isa_samples (the host engine's unc_sa_range chunk scan, K4's
+     path), equal; and 4,096 isa_range requests through the executor (K6's
+     path), every row walked back to its position;
+  9. one torch.profiler window over each exact-search path and over
+     rna_seq's device engine, last because the profiler slows every later
+     launch of its process: locate plain and seeded (device busy time,
+     device ops), search_reads, whose wall it splits into host encode,
+     upload, kernels and download, and rna_seq (K9, uploads, downloads).
 Each path of phases 4, 5, 8 and 10 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel's ``launches`` are
 those of the paths that run it and never those of a comparison (the
 standalone fill's are nw_fast_batch's: single_align fills inside the
 stitch kernel; K4's are the unc_sa_range scan's: the service kernel walks
-inside its own launch).  Then one JSON line with the nine kernels, the nvidia-smi
+inside its own launch; K7's in rna_seq are the host engine's, K9's the
+device engine's).  Then one JSON line with the ten kernels, the nvidia-smi
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises and exits non-zero; so does a machine without CUDA.
 
@@ -98,11 +106,16 @@ DP_CELL_OPS times the cells of each job's own (rlen + 1) x (min(glen, L2)
 + 1) matrix, plus one a step of the walk back.  A service round's are its
 search steps, its walk steps, the LF steps of its window chains (a walk
 step each) and one rank a lane; a seed table's the search steps its keys
-take; each counted from the round's own results.  The resolution of an N, forming the
+take; each counted from the round's own results.  K9's are the search, walk
+and window steps of every round its chunk's reads needed, counted from the
+plain version's rounds, and its bytes the bank, the lengths and the three
+output columns once, a sector a seed row, window or walk sample, and the
+index sectors the steps touch.  The resolution of an N, forming the
 lane masks, addresses and branches are left out, so the bound is, if
 anything, low.  No PyTorch call computes a backward search, an SA walk,
 an anchor hunt, an inverse-SA chain, an affine-gap DP fill or its
-backtrack, so ``library_ms`` is null for every kernel.
+backtrack, or runs a phase machine over them, so ``library_ms`` is null for
+every kernel.
 """
 
 from __future__ import annotations
@@ -121,6 +134,8 @@ sys.path.insert(0, str(ROOT))
 DP_SHAPES = ((32, 32), (32, 64), (64, 64), (64, 96), (96, 128))
 ALT_SCORING = (1, -2, -9, -1)
 TALL_SHAPE = (256, 160, 192)     # B, L1, L2: past a warp's 128 rows
+TRUE_TALL_SHAPE = (2, 12000, 12100)  # past the rows whose diagonals fit
+                                     # a block's shared memory
 NW_SHAPE = (96, 128)             # nw_fast_batch's padded read and window
 NW_PAIRS = 4096
 READ_LEN = 80
@@ -433,40 +448,68 @@ def phase_stitch(rng, tag):
     and the path it replaces."""
     import torch
 
+    import numpy as np
+
     from bwt_tpu_torch.ops import dp_wavefront as dw
 
-    cases = [(B, L1, L2, None) for L1, L2 in DP_SHAPES for B in (8, 1024)]
-    cases.append((1024, 32, 64, ALT_SCORING))
-    cases.append((*TALL_SHAPE, None))
+    # (B, L1, L2, scoring, the read-back form's threshold: None for the
+    # default, 0 to send the shape through that form)
+    cases = [(B, L1, L2, None, None) for L1, L2 in DP_SHAPES
+             for B in (8, 1024)]
+    cases.append((1024, 32, 64, ALT_SCORING, None))
+    cases.append((*TALL_SHAPE, None, None))
+    cases.append((*TALL_SHAPE, None, 0))
+    cases.append((*TRUE_TALL_SHAPE, None, None))
     names = ("maxloc", "i_resid", "j_resid", "nrun", "vals", "counts", "ops")
     rows = []
-    for B, L1, L2, scoring in cases:
-        bank_np, genome_np, f_np = stitch_jobs(rng, B, L1, L2)
+    for B, L1, L2, scoring, tall_rows in cases:
+        form = ("tall (read-back), through the hook" if tall_rows == 0
+                else "tall (read-back)" if L1 > dw._TALL_ROWS
+                else "warp" if L1 < 128 else "block")
+        # the read-back form's cases draw from their own generator, so
+        # that the later phases' inputs stay those of earlier runs
+        tall = tall_rows is not None or L1 > dw._TALL_ROWS
+        bank_np, genome_np, f_np = stitch_jobs(
+            np.random.default_rng(L1 + B) if tall else rng, B, L1, L2,
+            R=8 if B < 8 else 64)
         bank = torch.from_numpy(bank_np).cuda()
         genome = torch.from_numpy(genome_np).cuda()
         f = list(torch.from_numpy(f_np).cuda().unbind(0))
         kw = dict(L1=L1, L2=L2, scoring=scoring)
-        P, ops = dw.dp_stitch(bank, genome, *f, **kw)
-        (Pp, opsp), plain_ms = _event_ms(
-            lambda: dw.dp_stitch_plain(bank, genome, *f, **kw))
-        got, want = (*dw.unpack(P), ops), (*dw.unpack(Pp), opsp)
-        err = _max_abs_diff(got, want)
-        bad = [n for n, a, b in zip(names, got, want)
-               if a.shape != b.shape or a.dtype != b.dtype
-               or not torch.equal(a, b)]
-        require(not bad, f"dp_stitch differs from its plain version at B={B} "
-                         f"L1={L1} L2={L2} scoring={scoring} in {bad}: max "
-                         f"|d| {err}")
+        default_rows = dw._TALL_ROWS
+        dw._TALL_ROWS = default_rows if tall_rows is None else tall_rows
+        try:
+            P, ops = dw.dp_stitch(bank, genome, *f, **kw)
+            (Pp, opsp), plain_ms = _event_ms(
+                lambda: dw.dp_stitch_plain(bank, genome, *f, **kw))
+            got, want = (*dw.unpack(P), ops), (*dw.unpack(Pp), opsp)
+            del Pp, opsp
+            err = _max_abs_diff(got, want)
+            bad = [n for n, a, b in zip(names, got, want)
+                   if a.shape != b.shape or a.dtype != b.dtype
+                   or not torch.equal(a, b)]
+            require(not bad, f"dp_stitch ({form}) differs from its plain "
+                             f"version at B={B} L1={L1} L2={L2} "
+                             f"scoring={scoring} in {bad}: max |d| {err}")
+            ms = cuda_ms(lambda: dw.dp_stitch(bank, genome, *f, **kw),
+                         20 if B > 2 else 5, ahead=True)
+        finally:
+            dw._TALL_ROWS = default_rows
+        del want
+        torch.cuda.empty_cache()
         # the path the kernel replaces: the same eager program around the
-        # fill kernel; host-bound, so its wall
-        unfused = lambda: dw.dp_stitch_plain(  # noqa: E731
-            bank, genome, *f, fill=dw.dp_fill_wavefront, **kw)
-        unfused()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        unfused()
-        torch.cuda.synchronize()
-        unfused_ms = (time.perf_counter() - t0) * 1e3
+        # fill kernel; host-bound, so its wall (not taken for the tall
+        # forms: the fill's output alone is B x D x (L1 + 1) ints twice)
+        unfused_ms = None
+        if tall_rows is None and L1 <= dw._TALL_ROWS:
+            unfused = lambda: dw.dp_stitch_plain(  # noqa: E731
+                bank, genome, *f, fill=dw.dp_fill_wavefront, **kw)
+            unfused()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unfused()
+            torch.cuda.synchronize()
+            unfused_ms = (time.perf_counter() - t0) * 1e3
         rlen, glen = f[2].long(), f[5].long()
         i0, jmax = rlen.clamp(0, L1), glen.clamp(max=L2)
         cells = int(((i0 + 1) * (jmax + 1).clamp(min=0)).sum())
@@ -476,21 +519,24 @@ def phase_stitch(rng, tag):
             4 * (8 * B + int(i0.sum()) + int(jmax.clamp(min=0).sum())
                  + sum(t.numel() for t in got)),
             DP_CELL_OPS * cells + steps)
-        ms = cuda_ms(lambda: dw.dp_stitch(bank, genome, *f, **kw), 20,
-                     ahead=True)
         rows.append(dict(B=B, L1=L1, L2=L2, scoring=scoring or "default",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         unfused_wall_ms=unfused_ms, cells=cells,
-                         walk_steps=steps, over_runs=over, **bound))
+                         form=form, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, unfused_wall_ms=unfused_ms,
+                         cells=cells, walk_steps=steps, over_runs=over,
+                         **bound))
+        replaced = ("not run" if unfused_ms is None
+                    else f"{unfused_ms:.4f} ms of wall")
         print(f"phase 2 dp_stitch B={B} L1={L1} L2={L2} "
-              f"scoring={scoring or 'default'}: the packed outputs and the op "
-              f"rows bit-equal "
+              f"scoring={scoring or 'default'}, {form} form: the packed "
+              f"outputs and the op rows bit-equal "
               f"(tolerance 0, max |d| {err}), {over} jobs past "
               f"{dw.RLE_R} runs, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
               f"({bound['bytes']} bytes, {bound['ops']} operations); the "
               f"eager path around the fill kernel that it replaces: "
-              f"{unfused_ms:.4f} ms of wall {tag}", flush=True)
+              f"{replaced} {tag}", flush=True)
+        del P, ops, got, bank, genome, f
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1121,13 +1167,12 @@ def _window_steps(fmi, plo, width, W=32) -> int:
     return int((span.clamp(max=r - 1 + W) - 1).clamp(min=0).sum())
 
 
-def _service_bound(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
-    """The bound of one service round from its own results: the search
-    steps each loop lane took (from its match count and whether it died;
-    a lane that could start from the seed table is spared k - 1 of them),
-    the walks' steps, the window chains' steps and one rank a lane for the
-    C[c] + rank column; bytes: the fields, each slice once, a sector a
-    seed row, the 13 columns, and the index sectors the steps touch."""
+def _round_steps(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
+    """The work of one service round, from its own results: the search
+    steps each loop lane took (from its match count and whether it died; a
+    lane that could start from the seed table is spared k - 1 of them), the
+    walks and their steps, the window chains and their steps, the lanes
+    that started from the table, and the bytes of the slices searched."""
     import torch
 
     from bwt_tpu_torch.ops import service as sv
@@ -1147,7 +1192,6 @@ def _service_bound(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
         eff = torch.where(is_mms, ln - cols[sv.SKIPS], ln).clamp(min=1)
         seeded = (is_mms | is_bs) & (ln > 0) & (eff >= seed_k)
         steps = torch.where(seeded, (steps - (seed_k - 1)).clamp(min=0), steps)
-    nsearch = int(steps[in_loop].sum())
     nwalk = walks = 0
     if walk:
         zeros = torch.zeros_like(opc)
@@ -1164,14 +1208,28 @@ def _service_bound(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
         wwid = torch.where(m_ext, 2 * (ep + 3) + 1, ep).clamp(0, 32)
         wwid = torch.where(any_ext, wwid, 0)
         nwin, wins = _window_steps(fmi, wlo, wwid), int((wwid > 0).sum())
-    lf_steps = nwalk + nwin
-    slices = int(ln[in_loop].clamp(0, Lb).sum()) * bank.element_size()
-    nbytes = (4 * 7 * B + slices + 32 * int(seeded.sum()) + 4 * 13 * B
-              + _index_bytes(fmi, nsearch, lf_steps, walks) + 32 * wins)
-    ops = (SEARCH_STEP_OPS * nsearch + WALK_STEP_OPS * lf_steps
+    return dict(search=int(steps[in_loop].sum()), walk=nwalk, walks=walks,
+                window=nwin, windows=wins, seeded=int(seeded.sum()),
+                slice_bytes=int(ln[in_loop].clamp(0, Lb).sum())
+                * bank.element_size())
+
+
+def _service_bound(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
+    """The bound of one service round from its own results
+    (:func:`_round_steps`), with one rank a lane for the C[c] + rank
+    column; bytes: the fields, each slice once, a sector a seed row, the
+    13 columns, and the index sectors the steps touch."""
+    B = fields[0].shape[0]
+    w = _round_steps(fmi, bank, fields, cols, ext=ext, walk=walk,
+                     seed_k=seed_k)
+    lf_steps = w["walk"] + w["window"]
+    nbytes = (4 * 7 * B + w["slice_bytes"] + 32 * w["seeded"] + 4 * 13 * B
+              + _index_bytes(fmi, w["search"], lf_steps, w["walks"])
+              + 32 * w["windows"])
+    ops = (SEARCH_STEP_OPS * w["search"] + WALK_STEP_OPS * lf_steps
            + (RANK_OPS + 1) * B)
-    return dict(bound_of(nbytes, ops), search_steps=nsearch, walk_steps=nwalk,
-                window_steps=nwin)
+    return dict(bound_of(nbytes, ops), search_steps=w["search"],
+                walk_steps=w["walk"], window_steps=w["window"])
 
 
 def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
@@ -1279,26 +1337,109 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
     return rows
 
 
+def _automaton_case(fmi, svc, reads, tag) -> dict:
+    """K9 on one chunk of phase 10's reads against its plain version on the
+    card, bit-equal in its whole packed output (res, capped, iterations,
+    flag), timed beside its bound.  The bound counts what the chunk's reads
+    needed, from the plain version's rounds: each live read's search steps
+    (62 operations), walk and window-chain steps (35) and a 32-byte sector
+    for each of its seed rows, window samples and walk samples; bytes: the
+    bank, the lengths and live flags and the three output columns once,
+    and the index sectors the steps touch."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import automaton
+    from bwt_tpu_torch.ops import service as sv
+
+    cfg, seed = svc.config, svc.seed
+    chunk = QueryService(fmi, config=cfg)
+    _, rl = chunk.add_reads_batch(reads)
+    bank = chunk.bank8
+    R = bank.shape[0]
+    lens_np = np.zeros(R, np.int32)
+    lens_np[:len(rl)] = rl
+    lens = torch.from_numpy(lens_np).to(fmi.device)
+    live0 = torch.arange(R, device=fmi.device) < len(rl)
+    args = (fmi, bank, lens, live0, seed.rows)
+    kw = dict(ac=cfg.rnaseq_anchor_cutoff, cc=cfg.rnaseq_cont_cutoff,
+              resolve=chunk._has_n, seed_k=seed.k)
+    got = automaton.rna_seq_automaton_packed(*args, **kw)
+    want, plain_ms = _event_ms(
+        lambda: automaton.rna_seq_automaton_packed(*args, plain=True, **kw))
+    err = _max_abs_diff([got], [want])
+    require(got.shape == want.shape and torch.equal(got, want),
+            f"K9 differs from its plain version on a chunk of {len(rl)} "
+            f"reads: max |d| {err}")
+    automaton.automaton_raise(fmi, got)
+    _, capped, iters = automaton.unpack(got)
+    require(not bool(capped.any()), "a read reached K9's iteration cap")
+    totals = dict(search=0, walk=0, walks=0, window=0, windows=0, seeded=0,
+                  rounds=0)
+
+    def on_round(fields, cols):
+        live = fields[0] != sv.OP_NONE
+        w = _round_steps(fmi, bank, [f[live] for f in fields], cols[:, live],
+                         ext=True, walk=True, seed_k=seed.k)
+        for key in totals:
+            totals[key] += w.get(key, 1)
+
+    automaton.rna_seq_automaton_plain(*args, on_round=on_round, **kw)
+    lf_steps = totals["walk"] + totals["window"]
+    nbytes = (bank.numel() + 5 * R + 4 * 3 * R
+              + 32 * (totals["seeded"] + totals["windows"])
+              + _index_bytes(fmi, totals["search"], lf_steps, totals["walks"]))
+    bound = bound_of(nbytes, SEARCH_STEP_OPS * totals["search"]
+                     + WALK_STEP_OPS * lf_steps)
+    ms = cuda_ms(lambda: automaton.rna_seq_automaton_packed(*args, **kw), 10,
+                 ahead=True)
+    longest = int(iters.max())
+    hist = np.bincount(iters[:len(rl)].cpu().numpy())
+    row = dict(kernel="rnaseq_automaton", case="a chunk of phase 10",
+               shape=f"R={R} Lb={bank.shape[1]} uint8, k={seed.k} table",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, rounds=totals[
+                   "rounds"], search_steps=totals["search"],
+               walk_steps=totals["walk"], window_steps=totals["window"],
+               longest_iters=longest,
+               mean_iters=float(iters[:len(rl)].float().mean()),
+               iters_hist=hist.tolist(), **bound)
+    print(f"phase 10 K9 rnaseq_automaton on a chunk of {len(rl)} reads "
+          f"({row['shape']}): bit-equal to its plain version on the card "
+          f"(tolerance 0, max |d| {err}; res, capped, iterations and the "
+          f"flag), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms in "
+          f"{totals['rounds']} lockstep rounds, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({bound['bytes']} bytes, {bound['ops']} operations: "
+          f"{totals['search']} search, {totals['walk']} walk and "
+          f"{totals['window']} window steps); the longest read ran {longest} "
+          f"iterations, the mean {row['mean_iters']:.3f}, by count "
+          f"{hist.tolist()} {tag}", flush=True)
+    return row
+
+
 def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
-                  no_isa=4096, nwindows=4096):
-    """Phase 10: rna_seq's host engine on reads cut from the genome with
-    one base complemented (the self-benchmark of rnaseqtest.c:313-327),
-    then the executor's isa_range request."""
+                  forced=4096, no_isa=4096, nwindows=4096):
+    """Phase 10: rna_seq on reads cut from the genome with one base
+    complemented (the self-benchmark of rnaseqtest.c:313-327): the device
+    automaton ("auto"), then the host engine on the same reads, then the
+    executor's isa_range request."""
     import dataclasses
 
     import numpy as np
 
     from bwt_tpu_torch.models import rnaseq
     from bwt_tpu_torch.models.batch_exec import BatchExecutor, QueryService
-    from bwt_tpu_torch.ops import dp_wavefront, search, service
+    from bwt_tpu_torch.ops import automaton, dp_wavefront, search, service
 
     starts = rng.integers(0, len(codes_np) - read_len, size=nreads)
     reads = codes_np[np.add.outer(starts, np.arange(read_len))].copy()
     mpos = rng.integers(0, read_len, size=nreads)
     reads[np.arange(nreads), mpos] = 3 - reads[np.arange(nreads), mpos]
     svc = QueryService(fmi)
-    # warm-up, on the reads before their mutation: an exact read is one
-    # full match and reports where it was cut
+    # warm-up, on the reads before their mutation (it also builds the
+    # seed table): an exact read is one full match and reports where it
+    # was cut
     exact = codes_np[np.add.outer(starts[:256], np.arange(read_len))]
     require(np.array_equal(rnaseq.rna_seq(fmi, exact, service=svc),
                            starts[:256]),
@@ -1308,14 +1449,46 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
         search.BS_LAUNCHES = search.UNC_LAUNCHES = search.ISA_LAUNCHES = 0
         search.LOCATE_LAUNCHES = search.ANCHOR_LAUNCHES = 0
         dp_wavefront.LAUNCHES = dp_wavefront.STITCH_LAUNCHES = 0
-        service.SERVICE_LAUNCHES = 0
+        service.SERVICE_LAUNCHES = automaton.AUTOMATON_LAUNCHES = 0
 
     def others():
         return (search.BS_LAUNCHES, search.UNC_LAUNCHES, search.ISA_LAUNCHES,
                 search.LOCATE_LAUNCHES, search.ANCHOR_LAUNCHES,
                 dp_wavefront.LAUNCHES, dp_wavefront.STITCH_LAUNCHES)
 
-    # the executor clocks its service calls and its generators; the two
+    # the main path: "auto" takes the device automaton, one K9 launch a
+    # chunk of config.search_batch reads
+    zero_counts()
+    t0 = time.perf_counter()
+    pos = rnaseq.rna_seq(fmi, reads, service=svc)
+    dt = time.perf_counter() - t0
+    dstats = dict(svc.last_stats)
+    k9 = automaton.AUTOMATON_LAUNCHES
+    nchunks = -(-nreads // svc.config.search_batch)
+    require(k9 == dstats["automaton_launches"] == dstats["chunks"] == nchunks,
+            f"{k9} K9 launches for {nchunks} chunks ({dstats})")
+    require(service.SERVICE_LAUNCHES == 0 and others() == (0,) * 7,
+            f"rna_seq's device engine launched another kernel than K9: K7 "
+            f"{service.SERVICE_LAUNCHES}, K3, K4, K6, locate, anchor_scan, "
+            f"fill, stitch {others()}")
+    require(dstats["capped"] == 0, f"{dstats['capped']} reads capped")
+    require(pos.shape == (nreads,) and bool((pos >= -1).all())
+            and bool((pos <= len(codes_np)).all()),
+            "rna_seq returned a position outside [-1, n]")
+    # a read whose mutation lies in its last bases retries shorter
+    # prefixes while its search breaks short of the anchor cutoff; a prefix
+    # that leaves the mutation out is exact and reports the read's origin.
+    # On 2^25 bases a mutated suffix matches 12 to 14 bases somewhere by
+    # chance, and 13 pass the cutoff: each retry then has an even chance of
+    # ending the hunt at such a chance match (the break path's position,
+    # rnaseqtest.c:55), so a fifth of these reads reach the exact prefix
+    tail = mpos >= read_len - 10
+    at_origin = float((pos[tail] == starts[tail]).mean())
+    require(at_origin >= 0.1, f"only {at_origin:.3f} of the reads mutated in "
+                              f"their last 10 bases report their origin")
+
+    # the host engine on the same reads: K7, one launch a service call.
+    # The executor clocks its service calls and its generators; the two
     # other loops over a round's requests are clocked from here
     clocks = dict(dispatch=0.0, replies=0.0, lanes=0)
     dispatch, finish = (BatchExecutor._dispatch_round,
@@ -1336,8 +1509,8 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
     zero_counts()
     try:
         t0 = time.perf_counter()
-        pos = rnaseq.rna_seq(fmi, reads, service=svc)
-        dt = time.perf_counter() - t0
+        host = rnaseq.rna_seq(fmi, reads, service=svc, engine="host")
+        dt_host = time.perf_counter() - t0
     finally:
         BatchExecutor._dispatch_round = dispatch
         BatchExecutor._finish_service = staticmethod(finish)
@@ -1346,58 +1519,68 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
     require(launches == stats["svc_calls"] == stats["svc_launches"] > 0,
             f"{launches} service kernel launches for {stats['svc_calls']} "
             f"service calls")
-    require(others() == (0,) * 7,
-            f"rna_seq launched another kernel than the service's: K3, K4, "
-            f"K6, locate, anchor_scan, fill, stitch launches {others()}")
-    require(pos.shape == (nreads,) and bool((pos >= -1).all())
-            and bool((pos <= len(codes_np)).all()),
-            "rna_seq returned a position outside [-1, n]")
-    # a read whose mutation lies in its last bases retries shorter
-    # prefixes while its search breaks short of the anchor cutoff; a prefix
-    # that leaves the mutation out is exact and reports the read's origin.
-    # On 2^25 bases a mutated suffix matches 12 to 14 bases somewhere by
-    # chance, and 13 pass the cutoff: each retry then has an even chance of
-    # ending the hunt at such a chance match (the break path's position,
-    # rnaseqtest.c:55), so a fifth of these reads reach the exact prefix
-    tail = mpos >= read_len - 10
-    at_origin = float((pos[tail] == starts[tail]).mean())
-    require(at_origin >= 0.1, f"only {at_origin:.3f} of the reads mutated in "
-                              f"their last 10 bases report their origin")
+    require(others() == (0,) * 7 and automaton.AUTOMATON_LAUNCHES == 0,
+            f"rna_seq's host engine launched another kernel than the "
+            f"service's: K9 {automaton.AUTOMATON_LAUNCHES}, K3, K4, K6, "
+            f"locate, anchor_scan, fill, stitch {others()}")
+    require(np.array_equal(host, pos),
+            f"the device automaton and the host engine differ on "
+            f"{int((host != pos).sum())} of {nreads} reads")
+
+    # a subset through the plain automaton on the card and on the CPU
     sub = reads[:subset]
     svc.svc_impl = "plain"
     with_plain = rnaseq.rna_seq(fmi, sub, service=svc)
-    require(svc.last_stats["svc_launches"] == 0,
-            "svc_impl = 'plain' launched the service kernel")
+    require(svc.last_stats["automaton_launches"] == 0,
+            "svc_impl = 'plain' launched K9")
     svc.svc_impl = "kernel"
     t1 = time.perf_counter()
     on_cpu = rnaseq.rna_seq(fmi.to("cpu"), sub)
     cpu_s = time.perf_counter() - t1
     require(np.array_equal(with_plain, pos[:subset])
             and np.array_equal(on_cpu, pos[:subset]),
-            f"rna_seq differs on the {subset}-read subset between the "
-            f"service kernel, its plain version on the card and the CPU")
+            f"rna_seq differs on the {subset}-read subset between K9, its "
+            f"plain version on the card and the CPU")
+
+    # the cap as a bound with a flag: at 4 iterations most reads come back
+    # capped and re-run on the host generators, with unchanged values
+    rnaseq._TEST_CAP = 4
+    try:
+        t1 = time.perf_counter()
+        capped = rnaseq.rna_seq(fmi, reads[:forced], service=svc)
+        cap_s = time.perf_counter() - t1
+    finally:
+        rnaseq._TEST_CAP = 0
+    ncapped = svc.last_stats["capped"]
+    require(ncapped > 0 and np.array_equal(capped, pos[:forced]),
+            f"the forced cap ({ncapped} reads capped) changed a value")
+
+    k9_row = _automaton_case(fmi, svc, reads[:svc.config.search_batch], tag)
+    rest = dt_host - clocks["dispatch"] - clocks["replies"] - stats["t_gen"]
     print(f"phase 10 rna_seq {nreads} x {read_len} bp, one base complemented "
-          f"(cut from the self-benchmark's 1 M reads: the host generators "
-          f"set the pace): {nreads / dt:.1f} reads/s ({dt:.3f} s), 256 "
-          f"unmutated reads report their origin, {at_origin:.4f} of the "
-          f"{int(tail.sum())} reads mutated in their last 10 bases do "
-          f"(the others end at a chance match of 13 bases); executor: {stats['rounds']} "
-          f"rounds, {stats['svc_calls']} service calls = {launches} service "
-          f"kernel launches over {clocks['lanes']} lanes, t_svc "
+          f"(the self-benchmark's 1 M reads cut to 2^16), engine 'auto': "
+          f"{nreads / dt:.1f} reads/s ({dt:.4f} s), {k9} K9 launches for "
+          f"{nchunks} chunks and no other kernel, the longest read "
+          f"{dstats['max_iters']} iterations, 256 unmutated reads report "
+          f"their origin, {at_origin:.4f} of the {int(tail.sum())} reads "
+          f"mutated in their last 10 bases do (the others end at a chance "
+          f"match of 13 bases); equal on all {nreads} reads to the host "
+          f"engine, {nreads / dt_host:.1f} reads/s ({dt_host:.3f} s): "
+          f"{stats['rounds']} rounds, {stats['svc_calls']} service calls = "
+          f"{launches} K7 launches over {clocks['lanes']} lanes, t_svc "
           f"{stats['t_svc']:.4f} s "
-          f"({100 * stats['t_svc'] / dt:.2f} % of the wall) inside "
+          f"({100 * stats['t_svc'] / dt_host:.2f} % of its wall) inside "
           f"{clocks['dispatch']:.4f} s of sorting the rounds' requests, "
           f"building their replies {clocks['replies']:.4f} s, generators "
           f"{stats['t_gen']:.4f} s, the rest (registering the reads, the "
-          f"bank, making the generators) "
-          f"{dt - clocks['dispatch'] - clocks['replies'] - stats['t_gen']:.4f}"
-          f" s, no other kernel launched; {subset}-read "
-          f"subset equal through svc_impl = 'plain' on the card and on a CPU "
-          f"copy of the index ({cpu_s:.3f} s) {tag}", flush=True)
+          f"bank, making the generators) {rest:.4f} s; {subset}-read subset equal through the plain automaton on "
+          f"the card and on a CPU copy of the index ({cpu_s:.3f} s); at a "
+          f"forced cap of 4 iterations {ncapped} of {forced} reads re-ran "
+          f"on the host, values equal ({cap_s:.3f} s) {tag}", flush=True)
 
     # an index read from the reference's file format has no inverse
-    # samples: the continuation's candidate scan then walks the interval's
-    # rows in chunks (unc_sa_range), which is K4's path
+    # samples: "auto" takes the host engine, whose continuation's candidate
+    # scan walks the interval's rows in chunks (unc_sa_range): K4's path
     bare = dataclasses.replace(fmi, isa_samples=None)
     zero_counts()
     t0 = time.perf_counter()
@@ -1406,11 +1589,13 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
     unc = search.UNC_LAUNCHES
     require(np.array_equal(chunked, pos[:no_isa]),
             "rna_seq without isa_samples differs from the fused window scan")
-    require(unc > 0 and search.BS_LAUNCHES == 0,
+    require(unc > 0 and search.BS_LAUNCHES == 0
+            and automaton.AUTOMATON_LAUNCHES == 0,
             f"rna_seq without isa_samples: K4 launches {unc}, K3 launches "
-            f"{search.BS_LAUNCHES}")
+            f"{search.BS_LAUNCHES}, K9 launches "
+            f"{automaton.AUTOMATON_LAUNCHES}")
     print(f"phase 10 rna_seq {no_isa} reads on the index without "
-          f"isa_samples: equal to the fused window scan, "
+          f"isa_samples (the host engine): equal to the device automaton, "
           f"{no_isa / dt_bare:.1f} reads/s ({dt_bare:.3f} s), K4 launches "
           f"{unc} (one a round with an unc_sa_range request), service kernel "
           f"launches {service.SERVICE_LAUNCHES} {tag}", flush=True)
@@ -1440,11 +1625,13 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, read_len=50, subset=1024,
           f"positions, every row walked back to its position, "
           f"{nwindows / dt_isa:.1f} windows/s ({dt_isa:.3f} s), K6 launches "
           f"1, service kernel launches 1 {tag}", flush=True)
-    return dict(n=nreads, s=dt, per_s=nreads / dt, at_origin=at_origin,
-                launches=launches, stats=stats, clocks=clocks,
-                no_isa_s=dt_bare,
-                unc_launches=unc, isa_launches=isa,
-                isa_svc_launches=service.SERVICE_LAUNCHES)
+    return reads, dict(
+        n=nreads, s=dt, per_s=nreads / dt, at_origin=at_origin,
+        automaton_launches=k9, device_stats=dstats, host_s=dt_host,
+        host_per_s=nreads / dt_host, launches=launches, stats=stats,
+        clocks=clocks, cpu_subset_s=cpu_s, forced_capped=ncapped, k9=k9_row,
+        no_isa_s=dt_bare, unc_launches=unc, isa_launches=isa,
+        isa_svc_launches=service.SERVICE_LAUNCHES)
 
 
 def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
@@ -1498,11 +1685,12 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
                 launches=launches[0], chunks=chunks, paired=paired), reads
 
 
-def phase_profiles(fmi, table, kmers, reads, report, tag):
-    """Phase 9: one torch.profiler window over each exact-search path, after
-    every untraced measurement (the profiler, once started, slows every
-    later launch of the process).  Adds to ``report`` in place."""
-    from bwt_tpu_torch.models import exact
+def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag):
+    """Phase 9: one torch.profiler window over each exact-search path and
+    over rna_seq's device engine, after every untraced measurement (the
+    profiler, once started, slows every later launch of the process).
+    Adds to ``report`` in place."""
+    from bwt_tpu_torch.models import exact, rnaseq
     from bwt_tpu_torch.ops import search
 
     pats, lens = kmers
@@ -1549,6 +1737,28 @@ def phase_profiles(fmi, table, kmers, reads, report, tag):
         encode_s=encode_s, traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
         device_ops=prof["ops"], split_ms=split)
 
+    # rna_seq's device engine: a K9 launch, an upload of the bank and one
+    # of the lengths, and one copy back a chunk
+    prof = device_profile(lambda: rnaseq.rna_seq(fmi, rna_reads))
+    split = dict(kernels=0.0, upload=0.0, download=0.0, other=0.0)
+    for name, (_, ms) in prof["by_name"].items():
+        kind = ("kernels" if "rnaseq_automaton_kernel" in name
+                else "upload" if "Memcpy HtoD" in name
+                else "download" if "Memcpy DtoH" in name else "other")
+        split[kind] += ms
+    wall_ms = prof["wall_s"] * 1e3
+    print(f"phase 9 profile of rna_seq {rna_reads.shape[0]} x "
+          f"{rna_reads.shape[1]} bp (the device engine), {wall_ms:.3f} ms "
+          f"traced wall: K9 {split['kernels']:.3f} ms "
+          f"({100 * split['kernels'] / wall_ms:.2f} %), upload "
+          f"{split['upload']:.3f} ms, download {split['download']:.3f} ms, "
+          f"other device ops {split['other']:.3f} ms; device busy "
+          f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / wall_ms:.2f} "
+          f"%) in {prof['ops']} device ops; the rest is the host {tag}",
+          flush=True)
+    report["rna_seq"].update(traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
+                             device_ops=prof["ops"], split_ms=split)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1579,7 +1789,7 @@ def main(argv=None) -> int:
     regs = re.findall(r"Used (\d+) registers", _kernels.LAST_REPORT)
     frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                         _kernels.LAST_REPORT)
-    require(len(regs) >= 19 and len(frames) == len(regs),
+    require(len(regs) >= 21 and len(frames) == len(regs),
             "the compiler's report does not list every kernel")
     require(all(f == ("0", "0") for f in frames),
             f"a kernel keeps values in local memory (stack frame, spill "
@@ -1606,8 +1816,10 @@ def main(argv=None) -> int:
     del recorded
     report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
                                                        1 << 20, tag)
-    report["rna_seq"] = rna = phase_rna_seq(fmi, codes, rng, 1 << 16, tag)
-    phase_profiles(fmi, table, kmers, reads, report, tag)
+    rna_reads, rna = phase_rna_seq(fmi, codes, rng, 1 << 16, tag)
+    report["rna_seq"] = rna
+    report["kernels"].append(rna["k9"])
+    phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag)
     del fmi, table, kmers
     torch.cuda.empty_cache()
     if args.out:
@@ -1664,11 +1876,16 @@ def main(argv=None) -> int:
         ("isa_window", "bwt_tpu_torch/csrc/isa_window.cu",
          "bwt_tpu/ops/search.py:454", rna["isa_launches"],
          row_of("isa_window"), None),
+        # rna_seq's host engine runs K7 (engine="host"); its device engine
+        # K9 alone
         ("service", "bwt_tpu_torch/csrc/service.cu",
          "bwt_tpu/models/batch_exec.py:304",
          align["svc_launches"] + rna["launches"] + rna["isa_svc_launches"],
          row_of("service", "a round recorded from single_align (mms "
                            "lanes)"), None),
+        ("rnaseq_automaton", "bwt_tpu_torch/csrc/rnaseq_automaton.cu",
+         "bwt_tpu/models/rnaseq.py:265", rna["automaton_launches"],
+         row_of("rnaseq_automaton"), None),
     ]
     for entry in entries:
         require(entry[3] > 0, f"no main path launched the {entry[0]} kernel")

@@ -1,7 +1,8 @@
 """bwt_tpu_torch on an NVIDIA card: the CUDA kernels (DP fill, the fused
-DP stitch, backward search, SA walk, the fused locate and anchor scan,
-the seed-table build, the inverse-SA window and the fused service round)
-against their plain versions, and the port's main paths
+DP stitch in all its forms, backward search, SA walk, the fused locate and
+anchor scan, the seed-table build, the inverse-SA window, the fused
+service round and the rna_seq automaton) against their plain versions,
+and the port's main paths
 on the card against the same paths on the CPU (which the other
 test_torch_*.py files hold against bwt_tpu).
 
@@ -113,6 +114,30 @@ def test_stitch_kernel_matches_plain(card, B, L1, L2):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,L1,L2,tall_rows", [
+    (256, 160, 192, 128), (16, 160, 192, 0), (2, 12000, 12100, None)],
+    ids=["hook-160x192", "hook-0", "12000x12100"])
+def test_stitch_tall_form_matches_plain(card, monkeypatch, B, L1, L2,
+                                        tall_rows):
+    """The read-back form, its carried diagonals in device scratch: at
+    160 x 192 through the _TALL_ROWS hook, and at a true 12,000-row job
+    (past the diagonals that fit shared memory; the plain version's fill
+    there takes a few GB).  Both outputs bit-equal, one launch a call."""
+    if tall_rows is not None:
+        monkeypatch.setattr(dp_wavefront, "_TALL_ROWS", tall_rows)
+    rng = np.random.default_rng(B * 7 + L1)
+    bank, genome, f = stitch_jobs(rng, B, L1, L2, R=8)
+    args = (torch.from_numpy(bank).to(card), torch.from_numpy(genome).to(card),
+            *torch.from_numpy(f).to(card).unbind(0))
+    launches = dp_wavefront.STITCH_LAUNCHES
+    got = dp_wavefront.dp_stitch(*args, L1=L1, L2=L2)
+    assert dp_wavefront.STITCH_LAUNCHES == launches + 1
+    want = dp_wavefront.dp_stitch_plain(*args, L1=L1, L2=L2)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_nw_fast_batch_on_card_matches_cpu(card):
     """The batched nw_fast launches the fill kernel once and gives the CPU
     run's endpoints and CIGARs."""
@@ -140,8 +165,6 @@ def test_stitch_wrapper_raises_on_card(card):
         dp_wavefront.dp_stitch(bank, genome.cpu(), *f, L1=32, L2=32)
     with pytest.raises(ValueError):
         dp_wavefront.dp_stitch(bank, genome, *f[:7], f[7].cpu(), L1=32, L2=32)
-    with pytest.raises(ValueError, match="too tall"):  # by shape, no launch
-        dp_wavefront.dp_stitch(bank, genome, *f, L1=12000, L2=32)
     assert dp_wavefront.STITCH_LAUNCHES == launches
     empty = [t[:0] for t in f]
     P, ops = dp_wavefront.dp_stitch(bank, genome, *empty, L1=32, L2=32)
@@ -599,16 +622,17 @@ def test_rna_seq_on_card_matches_cpu_and_plain(card):
     mpos = rng.integers(0, 50, size=600)
     reads[np.arange(600), mpos] ^= 1
     reads[::50, 7] = 5
-    want = rnaseq.rna_seq(on_cpu, reads)
+    want = rnaseq.rna_seq(on_cpu, reads, engine="host")
     svc = QueryService(on_card)
     service.SERVICE_LAUNCHES = 0
-    got = rnaseq.rna_seq(on_card, reads, service=svc)
+    got = rnaseq.rna_seq(on_card, reads, service=svc, engine="host")
     stats = svc.last_stats
     assert service.SERVICE_LAUNCHES == stats["svc_calls"] > 0
     assert stats["svc_launches"] == stats["svc_calls"]
     assert np.array_equal(got, want)
     svc.svc_impl = "plain"
-    assert np.array_equal(rnaseq.rna_seq(on_card, reads, service=svc), want)
+    assert np.array_equal(
+        rnaseq.rna_seq(on_card, reads, service=svc, engine="host"), want)
     assert svc.last_stats["svc_launches"] == 0
     no_isa = dataclasses.replace(on_card, isa_samples=None)
     unc = search.UNC_LAUNCHES
@@ -616,3 +640,118 @@ def test_rna_seq_on_card_matches_cpu_and_plain(card):
     assert search.UNC_LAUNCHES > unc
     # a mutation in the last bases leaves a prefix that anchors at its origin
     assert (got == starts)[(mpos >= 40) & (reads[:, 7] != 5)].mean() > 0.5
+
+
+def _automaton_mix(g, rng):
+    """tests/test_torch_automaton.py's mix: 50-mers with 0 to 4
+    substitutions, random reads whose anchor hunt runs out, the lengths
+    around the cutoffs, reads with N's."""
+    reads = []
+    for _ in range(300):
+        j = int(rng.integers(0, len(g) - 55))
+        r = g[j:j + 50].copy()
+        for _ in range(int(rng.integers(0, 5))):
+            r[int(rng.integers(0, 50))] = rng.integers(0, 4)
+        reads.append(r)
+    reads += [rng.integers(0, 4, 50).astype(np.uint8) for _ in range(60)]
+    for ln in (1, 5, 13, 14, 15, 18, 19, 21, 22, 25):
+        j = int(rng.integers(0, len(g) - ln))
+        reads.append(g[j:j + ln].copy())
+    for k in range(40):
+        j = int(rng.integers(0, len(g) - 50))
+        r = g[j:j + 50].copy()
+        r[int(rng.integers(0, 50))] = 5
+        if k % 4 == 0:
+            r[-1] = 5
+        reads.append(r)
+    return reads
+
+
+@pytest.mark.parametrize("cap", [0, 4], ids=["uncapped", "cap-4"])
+@pytest.mark.parametrize("seed_k", [0, 8], ids=["no-seed", "seed-8"])
+@pytest.mark.parametrize("resolve", [False, True], ids=["raw", "resolve"])
+def test_automaton_kernel_matches_plain(card, cap, seed_k, resolve):
+    """K9 against its plain version on the card, bit-equal in res, capped,
+    the iterations and the flag: the automaton tests' mix, with and without
+    a seed table and N resolution, uncapped and at a cap of 4."""
+    from bwt_tpu_torch.ops import automaton
+
+    rng = np.random.default_rng(17 + seed_k)
+    g = rng.integers(0, 4, 40000).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(g, sa_sample_rate=8, device=card)
+    svc = QueryService(fmi)
+    _, rl = svc.add_reads_batch(_automaton_mix(g, rng))
+    R = svc.bank8.shape[0]
+    lens = np.zeros(R, np.int32)
+    lens[:len(rl)] = rl
+    args = (svc.bank8, torch.from_numpy(lens).to(card),
+            torch.arange(R, device=card) < len(rl),
+            search.build_seed_table(fmi, seed_k).rows if seed_k else None)
+    kw = dict(ac=14, cc=10, resolve=resolve, cap_steps=cap, seed_k=seed_k)
+    launches = automaton.AUTOMATON_LAUNCHES
+    got = automaton.rna_seq_automaton_packed(fmi, *args, **kw)
+    assert automaton.AUTOMATON_LAUNCHES == launches + 1
+    want = automaton.rna_seq_automaton_packed(fmi, *args, plain=True, **kw)
+    assert automaton.AUTOMATON_LAUNCHES == launches + 1
+    assert torch.equal(got, want)
+    res, capped, iters = automaton.unpack(got)
+    assert bool(capped.any()) == (cap == 4)
+    assert int(iters.max()) > (4 if cap == 0 else 3)
+
+
+def test_rna_seq_device_engine_on_card_matches_cpu(card, monkeypatch):
+    """rna_seq's default engine on the card: one K9 launch a chunk and no
+    K7 launch, equal to the CPU run, to the host engine and, through
+    svc_impl = "plain", to the plain automaton on the card; with a forced
+    cap the capped reads re-run on the host and the values hold."""
+    from bwt_tpu_torch.ops import automaton
+
+    rng = np.random.default_rng(19)
+    g = rng.integers(0, 4, 40000).astype(np.uint8)
+    on_card = bwt_tpu_torch.build_index(g, sa_sample_rate=8, device=card)
+    reads = _automaton_mix(g, rng)
+    want = rnaseq.rna_seq(on_card.to("cpu"), reads)
+    cfg = dataclasses.replace(DEFAULT, search_batch=128)
+    svc = QueryService(on_card, config=cfg)
+    launches = automaton.AUTOMATON_LAUNCHES, service.SERVICE_LAUNCHES
+    got = rnaseq.rna_seq(on_card, reads, service=svc)
+    assert automaton.AUTOMATON_LAUNCHES == launches[0] + 4
+    assert service.SERVICE_LAUNCHES == launches[1]
+    stats = svc.last_stats
+    assert stats["chunks"] == stats["automaton_launches"] == 4
+    assert np.array_equal(got, want)
+    assert np.array_equal(rnaseq.rna_seq(on_card, reads, engine="host"), want)
+    svc.svc_impl = "plain"
+    assert np.array_equal(rnaseq.rna_seq(on_card, reads, service=svc), want)
+    assert svc.last_stats["automaton_launches"] == 0
+    monkeypatch.setattr(rnaseq, "_TEST_CAP", 4)
+    svc = QueryService(on_card)
+    assert np.array_equal(rnaseq.rna_seq(on_card, reads, service=svc), want)
+    assert svc.last_stats["capped"] > 0
+
+
+def test_automaton_overrun_raises_on_card(card):
+    """On a np.zeros genome a read ending in C walks from a row past the
+    suffix array: K9 raises as its plain version does, naming the row."""
+    from bwt_tpu_torch.ops import automaton
+
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), sa_sample_rate=4,
+                                    device=card)
+    bank = torch.zeros((8, 32), dtype=torch.uint8, device=card)
+    bank[3, 19] = 1  # 'C', absent
+    lens = torch.full((8,), 20, dtype=torch.int32, device=card)
+    live0 = torch.arange(8, device=card) < 6
+    launches = automaton.AUTOMATON_LAUNCHES
+    for plain in (False, True):
+        with pytest.raises(RuntimeError, match="row 65"):
+            automaton.rna_seq_automaton(fmi, bank, lens, live0, ac=14, cc=10,
+                                        resolve=False, plain=plain)
+    assert automaton.AUTOMATON_LAUNCHES == launches + 1
+    with pytest.raises(ValueError, match="bank"):
+        automaton.rna_seq_automaton(fmi, bank.to(torch.int32), lens, live0,
+                                    ac=14, cc=10, resolve=False)
+    with pytest.raises(ValueError, match="isa_samples"):
+        automaton.rna_seq_automaton(
+            dataclasses.replace(fmi, isa_samples=None), bank, lens, live0,
+            ac=14, cc=10, resolve=False)
+    assert automaton.AUTOMATON_LAUNCHES == launches + 1

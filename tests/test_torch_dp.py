@@ -290,3 +290,27 @@ def test_host_dp_matches_bwt_tpu(rng):
                 jalign.sw_fast(read, genome, jc, scoring)
                 assert tc.render() == jc.render()
 
+
+
+def test_dp_core_at_the_tall_form_shape(monkeypatch):
+    """A 160 x 192 bucket with the read-back form's threshold lowered to 0
+    (dp_wavefront._TALL_ROWS, the hook the card tests use to reach that
+    form at this shape): the stitch equals bwt_tpu's Pallas path.  On the
+    CPU the threshold changes nothing; the card's form is held to this
+    plain version in tests/test_torch_cuda.py."""
+    monkeypatch.setattr(dp_wavefront, "_TALL_ROWS", 0)
+    L1, L2 = 160, 192
+    rng = np.random.default_rng(160)
+    B, Lb, G = 4, L1 + 16, 600
+    bank = rng.integers(0, 4, size=(4, Lb)).astype(np.int32)
+    bank[rng.random(bank.shape) < 0.03] = 5
+    genome = rng.integers(0, 4, size=G).astype(np.int32)
+    bank[0] = genome[100:100 + Lb]
+    fields = [np.array(x, np.int32) for x in (
+        [0, 1, 2, 3], [0, 3, 0, 7], [L1, 150, 97, L1], [0, 1, 0, 0],
+        [100, 40, 300, 0], [L2, 180, 120, 0], [0, 0, 1, 0], [1, 0, 1, 1])]
+    want = jexec._dp_core(bank, genome, *fields, L1=L1, L2=L2,
+                          impl="pallas_interpret")
+    got = texec._dp_core(torch.from_numpy(bank), torch.from_numpy(genome),
+                         *(torch.from_numpy(f) for f in fields), L1=L1, L2=L2)
+    _assert_stitch_equal(got, want, fields)

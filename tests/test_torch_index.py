@@ -180,3 +180,31 @@ def test_ref_format_bytes_equal(tmp_path, rate):
     (tmp_path / "head.idx").write_bytes(raw[:10])
     with pytest.raises(ValueError, match="truncated"):
         tio.read_ref_index(tmp_path / "head.idx")
+
+
+@pytest.mark.parametrize("case", ["rows12", "int64-arrays", "int64-isa"])
+def test_wide_index_is_refused(tmp_path, case):
+    """An index in bwt_tpu's wide (int64) layout, laid out in numpy as
+    bwt_tpu writes one (rank.ROW_INTS_WIDE rows: occ split into lo / hi
+    halves, then the words; int64 sa_samples, C, endloc and ISA), is
+    refused by name, not narrowed, through from_numpy and an npz file."""
+    jfmi = bwt_tpu.build_index(jcodec.random_genome(3000, seed=2),
+                               sa_sample_rate=8)
+    d = {f: np.asarray(getattr(jfmi, f)) for f in FIELDS}
+    d.update(length=jfmi.length, sa_rate=jfmi.sa_rate)
+    if case == "rows12":
+        b = d["buckets"]
+        d["buckets"] = np.concatenate(
+            [b[:, :4], np.zeros_like(b[:, :4]), b[:, 4:]], axis=1)
+        for f in ("sa_samples", "C", "endloc", "isa_samples"):
+            d[f] = d[f].astype(np.int64)
+    elif case == "int64-arrays":
+        for f in ("sa_samples", "C", "endloc"):
+            d[f] = d[f].astype(np.int64)
+    else:
+        d["isa_samples"] = d["isa_samples"].astype(np.int64)
+    with pytest.raises(ValueError, match="wide"):
+        bwt_tpu_torch.from_numpy(d, device="cpu")
+    np.savez(tmp_path / "wide.npz", version=np.int32(2), **d)
+    with pytest.raises(ValueError, match="wide"):
+        tio.read_npz_index(tmp_path / "wide.npz", device="cpu")

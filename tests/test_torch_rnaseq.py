@@ -2,7 +2,7 @@
 reads through ``bwt_tpu.models.rnaseq.rna_seq(engine="host")`` and
 ``bwt_tpu_torch.models.rnaseq.rna_seq(engine="host")``, values equal.
 Reads with an N are held to bwt_tpu's host engine too (the C binary is
-undefined there)."""
+undefined there).  The device automaton: tests/test_torch_automaton.py."""
 
 import dataclasses
 
@@ -112,19 +112,29 @@ def test_rna_seq_cutoffs_and_service_reuse(env):
     _both(jfmi, tfmi, reads, rnaseq_anchor_cutoff=18, rnaseq_cont_cutoff=8)
     _both(jfmi, tfmi, reads, rnaseq_cont_cutoff=27)
     svc = QueryService(tfmi)
-    a = trnaseq.rna_seq(tfmi, reads, service=svc)
-    b = trnaseq.rna_seq(tfmi, reads[:8], service=svc)
+    a = trnaseq.rna_seq(tfmi, reads, service=svc, engine="host")
+    b = trnaseq.rna_seq(tfmi, reads[:8], service=svc, engine="host")
     assert np.array_equal(a[:8], b)
     assert svc.last_stats["svc_calls"] > 0
     assert svc.last_stats["svc_launches"] == 0
+    # "auto" takes the device automaton on this index: its own counters
+    c = trnaseq.rna_seq(tfmi, reads[:8], service=svc)
+    assert np.array_equal(c, b)
+    assert svc.last_stats["chunks"] == 1
+    assert svc.last_stats["automaton_launches"] == 0
 
 
 def test_unported_engines_raise(env):
+    """The device engine needs isa_samples, as in bwt_tpu; mesh= and
+    elastic_fallback are not ported."""
     g, _, tfmi, _ = env
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trnaseq.rna_seq(tfmi, [g[:50]], engine="device")
+    with pytest.raises(ValueError, match="isa_samples"):
+        trnaseq.rna_seq(dataclasses.replace(tfmi, isa_samples=None),
+                        [g[:50]], engine="device")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trnaseq.rna_seq(tfmi, [g[:50]], mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trnaseq.rna_seq(tfmi, [g[:50]], engine="device", mesh=object())
     with pytest.raises(ValueError, match="unknown engine"):
         trnaseq.rna_seq(tfmi, [g[:50]], engine="tpu")
     with pytest.raises(NotImplementedError, match="elastic_fallback"):
