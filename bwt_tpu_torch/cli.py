@@ -34,8 +34,6 @@ def _read_reads(path: str) -> list[str]:
 def _device(args):
     import torch
 
-    if args.platform == "auto":
-        return None  # the card when there is one
     if args.platform == "cuda" and not torch.cuda.is_available():
         print("bwt_tpu_torch: --platform cuda but no CUDA device",
               file=sys.stderr)
@@ -174,9 +172,9 @@ def cmd_searchtest(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bwt_tpu_torch", description=__doc__)
     p.add_argument(
-        "--platform", choices=["auto", "cpu", "cuda"], default="auto",
-        help="device for the index and the queries (default: the card "
-        "when there is one)")
+        "--platform", choices=["cpu", "cuda"], default="cuda",
+        help="device for the index and the queries (default: the card; "
+        "without one the command exits 1)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("build_index", help="build + serialize an FM-index")

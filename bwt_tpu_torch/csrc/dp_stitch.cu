@@ -46,10 +46,29 @@
 //          they were written), as dp_wavefront.cu's read-back form reads
 //          its own output.  The caller may lower the threshold (`tall_l1`)
 //          to send a small job this way.
+//
+// K11a, the log form (a template argument, `LogForm`, over the same sweeps
+// and walk): the stitches of one DP shape bucket of the aligner's phase B.
+// Replaces bwt_tpu/models/aligner.py:_dp_scatter_bucket (the gather from the
+// device log, _dp_core, _dp_blocks_core and the scatters, one jitted program
+// there); the port's plain version is bwt_tpu_torch/ops/dp_wavefront.py:
+// dp_log_stitch_plain.  Job b is slot jt[b] of lane jk[b] of the automaton's
+// packed output (align_automaton.cu): its kind picks a head stitch (both
+// slices reversed, nw endpoint), an SW gap fill or an NW tail, its row is 2
+// lane + strand.  The walking thread writes no op row: it builds the job's
+// block as _dp_blocks_core does, straight into the chunk-wide accumulator
+// runs_oc[lane, slot, 0 : runs + 2], each entry (op + 2) << 24 | count: the
+// kept runs in walk order (zero runs up to the reported count), the I and D
+// residuals, padding 1 << 24, then, for an NW or head stitch, the first bl
+// entries reversed in place (the Cigar flip).  It sets bl3[lane, slot] =
+// bl, adds maxloc - 1 to head_end[lane] for a head stitch and raises
+// over[lane] where the job has more runs than `runs`.  Bounded as the row
+// form.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "align_log.cuh"
 #include "dp_cell.cuh"
 
 namespace {
@@ -104,25 +123,26 @@ struct Job {
   }
 };
 
-__device__ __forceinline__ Job load_job(const Fields& f, const Tables& t,
-                                        int b, int L1, int L2) {
+__device__ __forceinline__ Job make_job(const Tables& t, int L1, int L2,
+                                        int row, int roff, int rlen, int rrev,
+                                        int gstart, int glen, int grev,
+                                        int want_nw) {
   Job j;
-  const int row = clampi(__ldg(f.row + b), 0, t.R - 1);
-  j.read = t.bank + (size_t)row * t.Lb;
+  j.read = t.bank + (size_t)clampi(row, 0, t.R - 1) * t.Lb;
   j.genome = t.genome;
   j.Lb = t.Lb;
   j.G = t.G;
   j.L1 = L1;
   j.L2 = L2;
-  j.roff = __ldg(f.roff + b);
-  j.rlen = __ldg(f.rlen + b);
-  j.rrev = __ldg(f.rrev + b);
-  j.gstart = __ldg(f.gstart + b);
-  j.glen = __ldg(f.glen + b);
-  j.grev = __ldg(f.grev + b);
-  j.want_nw = __ldg(f.want_nw + b);
-  j.i0 = clampi(j.rlen, 0, L1);
-  j.jmax = min(j.glen, L2);
+  j.roff = roff;
+  j.rlen = rlen;
+  j.rrev = rrev;
+  j.gstart = gstart;
+  j.glen = glen;
+  j.grev = grev;
+  j.want_nw = want_nw;
+  j.i0 = clampi(rlen, 0, L1);
+  j.jmax = min(glen, L2);
   return j;
 }
 
@@ -198,28 +218,26 @@ __host__ __device__ size_t cells_bytes(int L1, int L2) {
   return ((size_t)(L1 + 1) * (L2 + 1) + 15) & ~(size_t)15;
 }
 
-// One thread: the endpoint, the walk from (i0, j0), the op row, the runs.
-// `packed` is the job's row (4 + 2 * runs ints, runs zeroed), `ops` its op
-// row (D ints, all 3).
-template <class Pointers>
+// One thread: the endpoint and the walk from (i0, j0).  `out` takes each
+// step's op (column s = diagonal D-1-s) and the first `runs` runs as they
+// close, then the end cell, the residuals, the reported run count (runs + 1
+// when the count or a kept run's length passes 32,000) and the runs kept.
+template <class Pointers, class Sink>
 __device__ __forceinline__ void finish(const Job& job, const Endpoint& end,
                                        const Pointers& ptr, int D, int runs,
-                                       int* packed, int* ops) {
+                                       const Sink& out) {
   const int maxloc = job.glen >= 0 ? end.dstar - job.i0 : 0;
   const int j0 = job.want_nw == 1 ? maxloc : clampi(job.glen, 0, job.L2);
-  int* vals = packed + 4;
-  int* counts = vals + runs;
   int i = job.i0, j = j0;
   int nrun = 0, run_op = -1, run_len = 0, longest = 0, last_d = -2;
   while (i > 0 && j > 0) {
     const int d = i + j;
     const int p = ptr.at(i, j);
     const int op = (p == 1 || p == 2) ? p : 0;
-    ops[D - 1 - d] = op;
+    out.step(D - 1 - d, op);
     if (last_d != d + 1 || op != run_op) {
       if (nrun >= 1 && nrun <= runs) {
-        vals[nrun - 1] = run_op;
-        counts[nrun - 1] = run_len;
+        out.run(nrun - 1, run_op, run_len);
         longest = max(longest, run_len);
       }
       ++nrun;
@@ -232,37 +250,144 @@ __device__ __forceinline__ void finish(const Job& job, const Endpoint& end,
     j -= op != 1;
   }
   if (nrun >= 1 && nrun <= runs) {
-    vals[nrun - 1] = run_op;
-    counts[nrun - 1] = run_len;
+    out.run(nrun - 1, run_op, run_len);
     longest = max(longest, run_len);
   }
-  packed[0] = maxloc;
-  packed[1] = i;
-  packed[2] = j;
-  packed[3] = (nrun > 32000 || longest > 32000) ? runs + 1 : min(nrun, 32000);
+  out.done(maxloc, i, j,
+           (nrun > 32000 || longest > 32000) ? runs + 1 : min(nrun, 32000),
+           min(nrun, runs));
 }
 
-struct Out {
+// The executor's stitch: the jobs' eight fields in, a packed row (maxloc,
+// i_resid, j_resid, nrun, `runs` values, `runs` counts) and the (D,) op row
+// of each job out.
+struct RowForm {
+  Fields f;
+  Tables t;
   int* packed;  // (B, 4 + 2 * runs)
   int* ops;     // (B, D)
   int runs;
+
+  struct Sink {
+    int* packed;
+    int* ops;
+    int runs;
+    __device__ __forceinline__ void step(int s, int op) const { ops[s] = op; }
+    __device__ __forceinline__ void run(int t, int op, int len) const {
+      packed[4 + t] = op;
+      packed[4 + runs + t] = len;
+    }
+    __device__ __forceinline__ void done(int maxloc, int i, int j, int nrun,
+                                         int) const {
+      packed[0] = maxloc;
+      packed[1] = i;
+      packed[2] = j;
+      packed[3] = nrun;
+    }
+  };
+
+  __device__ __forceinline__ Job job(int b, int L1, int L2) const {
+    return make_job(t, L1, L2, __ldg(f.row + b), __ldg(f.roff + b),
+                    __ldg(f.rlen + b), __ldg(f.rrev + b), __ldg(f.gstart + b),
+                    __ldg(f.glen + b), __ldg(f.grev + b),
+                    __ldg(f.want_nw + b));
+  }
+  // all 3 in the op row, zeros after the four scalars of the packed row
+  __device__ __forceinline__ void prefill(int b, int D, int tid,
+                                          int nthreads) const {
+    int* o = ops + (size_t)b * D;
+    for (int k = tid; k < D; k += nthreads) o[k] = 3;
+    int* p = packed + (size_t)b * (4 + 2 * runs);
+    for (int k = 4 + tid; k < 4 + 2 * runs; k += nthreads) p[k] = 0;
+  }
+  __device__ __forceinline__ Sink sink(int b, int D) const {
+    return Sink{packed + (size_t)b * (4 + 2 * runs), ops + (size_t)b * D,
+                runs};
+  }
 };
 
-template <int kStripes>
+// K11a: the jobs named by (lane, slot) of the automaton's log in, their
+// blocks scattered into the chunk's accumulators out (see the head of the
+// file; the layouts are align_log.cuh's, a block runs + 2 entries).
+struct LogForm {
+  const int* log;  // the automaton's packed output over Bp lanes
+  int Bp;
+  Tables t;
+  const int* jk;
+  const int* jt;
+  int* acc;
+  int runs;
+
+  // the log column c of slot e = lane * 16 + slot
+  __device__ __forceinline__ int at(int c, size_t e) const {
+    return __ldg(log + alog::log_col(c, Bp) + e);
+  }
+
+  struct Sink {
+    int* block;  // runs_oc[lane, slot]
+    int* bl3;
+    int* head_end;
+    int* over;
+    int runs;
+    bool flip, head;
+    __device__ __forceinline__ void step(int, int) const {}
+    __device__ __forceinline__ void run(int t, int op, int len) const {
+      block[t] = ((op + 2) << 24) | len;
+    }
+    __device__ __forceinline__ void done(int maxloc, int i, int j, int nrun,
+                                         int kept) const {
+      const int nr = min(nrun, runs);
+      for (int t = kept; t < nr; ++t) block[t] = 2 << 24;
+      int bl = nr;
+      if (i > 0) block[bl++] = (3 << 24) | i;
+      if (j > 0) block[bl++] = (4 << 24) | j;
+      for (int t = bl; t < runs + 2; ++t) block[t] = 1 << 24;
+      if (flip) {
+        for (int a = 0, z = bl - 1; a < z; ++a, --z) {
+          const int x = block[a];
+          block[a] = block[z];
+          block[z] = x;
+        }
+      }
+      *bl3 = bl;
+      if (head) atomicAdd(head_end, maxloc - 1);
+      if (nrun > runs) atomicMax(over, 1);
+    }
+  };
+
+  __device__ __forceinline__ Job job(int b, int L1, int L2) const {
+    const int lane = __ldg(jk + b);
+    const size_t e = (size_t)lane * alog::kLogN + __ldg(jt + b);
+    const int kind = at(alog::kKinds, e);
+    const int head = kind == alog::kHead ? 1 : 0;
+    const int strand = __ldg(log + alog::col(alog::kStrand, Bp) + lane);
+    return make_job(t, L1, L2, 2 * lane + strand, at(alog::kRoffs, e),
+                    at(alog::kRlens, e), head, at(alog::kGstarts, e),
+                    at(alog::kGlens, e), head, kind == alog::kSw ? 0 : 1);
+  }
+  __device__ __forceinline__ void prefill(int, int, int, int) const {}
+  __device__ __forceinline__ Sink sink(int b, int) const {
+    const int lane = __ldg(jk + b);
+    const size_t e = (size_t)lane * alog::kLogN + __ldg(jt + b);
+    const int kind = at(alog::kKinds, e);
+    const int W = runs + 2;
+    return Sink{acc + e * W, acc + alog::acc_bl3(Bp, W) + e,
+                acc + alog::acc_head_end(Bp, W) + lane,
+                acc + alog::acc_over(Bp, W) + lane, runs, kind != alog::kSw,
+                kind == alog::kHead};
+  }
+};
+
+template <int kStripes, class Form>
 __global__ void __launch_bounds__(32 * kWarpJobs)
-dp_stitch_warp_kernel(Fields f, Tables t, int B, int L1, int L2,
-                      dp::Scoring s, Out out) {
+dp_stitch_warp_kernel(Form form, int B, int L1, int L2, dp::Scoring s) {
   extern __shared__ uint2 shared_planes[];
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpJobs + (threadIdx.x >> 5);
   if (b >= B) return;  // a whole warp
   const int D = L1 + L2 + 1;
-  const int width = 4 + 2 * out.runs;
-  int* packed = out.packed + (size_t)b * width;
-  int* ops = out.ops + (size_t)b * D;
-  for (int k = lane; k < D; k += 32) ops[k] = 3;
-  for (int k = 4 + lane; k < width; k += 32) packed[k] = 0;
-  const Job job = load_job(f, t, b, L1, L2);
+  form.prefill(b, D, lane, 32);
+  const Job job = form.job(b, L1, L2);
   uint2* planes = shared_planes + (size_t)(threadIdx.x >> 5) * D * kStripes;
   WarpSink<kStripes> sink{planes, Endpoint{job.i0, job.jmax}};
   if (job.jmax >= 0) {
@@ -273,27 +398,23 @@ dp_stitch_warp_kernel(Fields f, Tables t, int B, int L1, int L2,
   }
   __syncwarp();
   if (lane == (job.i0 & 31)) {
-    finish(job, sink.end, WarpPointers{planes, kStripes}, D, out.runs, packed,
-           ops);
+    finish(job, sink.end, WarpPointers{planes, kStripes}, D, form.runs,
+           form.sink(b, D));
   }
 }
 
 // kTall: the carried diagonals in the job's scratch, after its pointers
 // (dp_stitch_plan's layout), else in shared memory.
-template <bool kTall>
+template <bool kTall, class Form>
 __global__ void __launch_bounds__(1024)
-dp_stitch_block_kernel(Fields f, Tables t, int L1, int L2, dp::Scoring s,
-                       Out out, unsigned char* scratch, size_t job_bytes) {
+dp_stitch_block_kernel(Form form, int L1, int L2, dp::Scoring s,
+                       unsigned char* scratch, size_t job_bytes) {
   extern __shared__ int shared_carry[];
   const int b = blockIdx.x;
   const int D = L1 + L2 + 1;
   const int rows = L1 + 1;
-  const int width = 4 + 2 * out.runs;
-  int* packed = out.packed + (size_t)b * width;
-  int* ops = out.ops + (size_t)b * D;
-  for (int k = threadIdx.x; k < D; k += blockDim.x) ops[k] = 3;
-  for (int k = 4 + threadIdx.x; k < width; k += blockDim.x) packed[k] = 0;
-  const Job job = load_job(f, t, b, L1, L2);
+  form.prefill(b, D, threadIdx.x, blockDim.x);
+  const Job job = form.job(b, L1, L2);
   unsigned char* cells = scratch + (size_t)b * job_bytes;
   int* carry = shared_carry;
   if constexpr (kTall) {
@@ -308,8 +429,8 @@ dp_stitch_block_kernel(Fields f, Tables t, int L1, int L2, dp::Scoring s,
   }
   __syncthreads();
   if (threadIdx.x == job.i0 % blockDim.x) {
-    finish(job, sink.end, BlockPointers{cells, L2 + 1}, D, out.runs, packed,
-           ops);
+    finish(job, sink.end, BlockPointers{cells, L2 + 1}, D, form.runs,
+           form.sink(b, D));
   }
 }
 
@@ -348,6 +469,59 @@ extern "C" int dp_stitch_plan(int L1, int L2, int tall_l1,
   return 1;
 }
 
+namespace {
+
+// One launch of either form at this shape: the plan's kernel, its shared
+// memory, its grid.
+template <class Form>
+int launch(const Form& form, int B, int L1, int L2, dp::Scoring s,
+           int tall_l1, unsigned char* scratch, cudaStream_t st) {
+  long long job_bytes;
+  const int plan = dp_stitch_plan(L1, L2, tall_l1, &job_bytes);
+  if (job_bytes != 0 && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool two = warp_stripes(L1) == 2;
+  const size_t smem = plan == 0   ? kWarpJobs * warp_pointer_bytes(L1, L2)
+                      : plan == 1 ? carry_bytes(L1)
+                                  : 0;
+  const void* kernel =
+      plan == 2 ? reinterpret_cast<const void*>(
+                      dp_stitch_block_kernel<true, Form>)
+      : plan == 1
+          ? reinterpret_cast<const void*>(dp_stitch_block_kernel<false, Form>)
+      : two ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2, Form>)
+            : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4, Form>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (plan == 0) {
+    const int blocks = (B + kWarpJobs - 1) / kWarpJobs;
+    if (two) {
+      dp_stitch_warp_kernel<2, Form><<<blocks, 32 * kWarpJobs, smem, st>>>(
+          form, B, L1, L2, s);
+    } else {
+      dp_stitch_warp_kernel<4, Form><<<blocks, 32 * kWarpJobs, smem, st>>>(
+          form, B, L1, L2, s);
+    }
+  } else {
+    int threads = ((L1 + 1 + 31) / 32) * 32;
+    if (threads > 1024) threads = 1024;
+    if (plan == 1) {
+      dp_stitch_block_kernel<false, Form><<<B, threads, smem, st>>>(
+          form, L1, L2, s, scratch, (size_t)job_bytes);
+    } else {
+      dp_stitch_block_kernel<true, Form><<<B, threads, 0, st>>>(
+          form, L1, L2, s, scratch, (size_t)job_bytes);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // bank (R, Lb) and genome (G,) int32; the eight job fields (B,) int32 each;
 // packed (B, 4 + 2 * runs) and ops (B, L1+L2+1) int32; scratch as
 // dp_stitch_plan(L1, L2, tall_l1) asks (B times its size, 16-byte
@@ -364,49 +538,33 @@ extern "C" int dp_stitch_launch(
   if (R <= 0 || Lb <= 0 || G <= 0 || L1 < 0 || L2 < 0 || runs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Fields f{row, roff, rlen, rrev, gstart, glen, grev, want_nw};
-  const Tables t{bank, R, Lb, genome, G};
-  const dp::Scoring s{match, mismatch, gap_open, gap_extend};
-  const Out out{packed, ops, runs};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long job_bytes;
-  const int form = dp_stitch_plan(L1, L2, tall_l1, &job_bytes);
-  if (job_bytes != 0 && scratch == nullptr) {
+  const RowForm form{Fields{row, roff, rlen, rrev, gstart, glen, grev,
+                            want_nw},
+                     Tables{bank, R, Lb, genome, G}, packed, ops, runs};
+  return launch(form, B, L1, L2,
+                dp::Scoring{match, mismatch, gap_open, gap_extend}, tall_l1,
+                scratch, static_cast<cudaStream_t>(stream));
+}
+
+// K11a.  log: the aligner automaton's packed output over Bp lanes; bank
+// (2 Bp, Lb) and genome (G,) int32; jk, jt (J,) int32, the jobs' lanes and
+// slots, each a valid job of the log; acc the chunk's accumulators (both
+// layouts align_log.cuh's, a block runs + 2 entries); scratch as
+// dp_stitch_plan(L1, L2, tall_l1) asks (J times its size), else null.  All
+// contiguous, on the device.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int dp_log_stitch_launch(
+    const int* log, int Bp, const int* bank, int Lb, const int* genome, int G,
+    const int* jk, const int* jt, int J, int L1, int L2, int match,
+    int mismatch, int gap_open, int gap_extend, int runs, int tall_l1,
+    int* acc, unsigned char* scratch, void* stream) {
+  if (J <= 0) return 0;
+  if (Bp <= 0 || Lb <= 0 || G <= 0 || L1 < 0 || L2 < 0 || runs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool two = warp_stripes(L1) == 2;
-  const size_t smem = form == 0   ? kWarpJobs * warp_pointer_bytes(L1, L2)
-                      : form == 1 ? carry_bytes(L1)
-                                  : 0;
-  const void* kernel =
-      form == 2   ? reinterpret_cast<const void*>(dp_stitch_block_kernel<true>)
-      : form == 1 ? reinterpret_cast<const void*>(dp_stitch_block_kernel<false>)
-      : two       ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2>)
-                  : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4>);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (form == 0) {
-    const int blocks = (B + kWarpJobs - 1) / kWarpJobs;
-    if (two) {
-      dp_stitch_warp_kernel<2><<<blocks, 32 * kWarpJobs, smem, st>>>(
-          f, t, B, L1, L2, s, out);
-    } else {
-      dp_stitch_warp_kernel<4><<<blocks, 32 * kWarpJobs, smem, st>>>(
-          f, t, B, L1, L2, s, out);
-    }
-  } else {
-    int threads = ((L1 + 1 + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    if (form == 1) {
-      dp_stitch_block_kernel<false><<<B, threads, smem, st>>>(
-          f, t, L1, L2, s, out, scratch, (size_t)job_bytes);
-    } else {
-      dp_stitch_block_kernel<true><<<B, threads, 0, st>>>(
-          f, t, L1, L2, s, out, scratch, (size_t)job_bytes);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const LogForm form{log, Bp, Tables{bank, 2 * Bp, Lb, genome, G}, jk, jt,
+                     acc, runs};
+  return launch(form, J, L1, L2,
+                dp::Scoring{match, mismatch, gap_open, gap_extend}, tall_l1,
+                scratch, static_cast<cudaStream_t>(stream));
 }

@@ -31,8 +31,13 @@ SA_SAMPLE_RATE = 32  # seqindex.c:173-176
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  Without one this raises: the port runs on the CPU only
+    when the caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "bwt_tpu_torch: no CUDA device; pass device='cpu' to run on the "
+            "CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,9 +5,18 @@ single_align.c:163-298, ``mms_mismatch`` :50-160, ``align_read``
 :300-358): retry budgets, proximity tolerances, stack resets and the
 head-alignment return-value quirk (the final head block returns
 ``curpos - len``, the in-loop one ``curpos - x``, single_align.c:271 vs
-:297).  Each read's control flow runs as a host generator; FM-index
-queries and DP stitches run batched across reads, one fused call per
-round, through :class:`~bwt_tpu_torch.models.batch_exec.BatchExecutor`.
+:297).  Two engines with equal results.  The device engine (``engine="device"``,
+the default on an index with ``isa_samples``) runs each chunk of reads as
+one launch of the aligner automaton (K10, :mod:`bwt_tpu_torch.ops.automaton`,
+phase A), which records every read's DP stitches in a log on the device,
+then replays the logs there (phase B): one launch of the log stitch (K11a)
+a DP shape bucket and one of the compose (K11b,
+:mod:`bwt_tpu_torch.ops.compose`) a chunk, and one copy of the composed
+runs to the host.  The host engine runs each read's control flow as a host
+generator; FM-index queries and DP stitches run batched across reads, one
+fused call per round, through
+:class:`~bwt_tpu_torch.models.batch_exec.BatchExecutor`.  It is also the
+device engine's escape for the rare reads it cannot finish.
 
 Deviations from the reference, all where C is undefined:
   * ``nmisses`` is read before it is written when the read is no
@@ -19,17 +28,68 @@ Deviations from the reference, all where C is undefined:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from bwt_tpu_torch import codec
 from bwt_tpu_torch.index import FMIndex
-from bwt_tpu_torch.models.batch_exec import BatchExecutor, QueryService
+from bwt_tpu_torch.models.batch_exec import (
+    _OP_CHARS, BatchExecutor, QueryService, _host_array, _to_device,
+    _to_host_async, dp_jobs_blocks)
+from bwt_tpu_torch.ops import automaton as au
+from bwt_tpu_torch.ops import compose as cmp
+from bwt_tpu_torch.ops import dp_wavefront as dpw
 from bwt_tpu_torch.utils.cigar import Cigar
+
+DEFAULT_ANCHOR_LEN = 12  # single_align.c:483
 
 # Candidate-interval scans fetch unc_sa_range in geometrically growing
 # chunks: the reference scans sequentially and almost always stops within
 # the first few entries (single_align.c:218-223).
 CAND_CHUNK = 32
+
+_OPC_BYTES = np.frombuffer("".join(_OP_CHARS).encode(), np.uint8)
+_RUNS_RE = None  # compiled at first use
+
+
+class _RenderedCigar(Cigar):
+    """A Cigar whose render string was built vectorized (numpy over the
+    compose's ops and counts) instead of from a per-read ops list.  ``ops``
+    is parsed from the string at first access; from then on it behaves as
+    a plain Cigar (render recomputes from ops, so a mutation stays
+    coherent)."""
+
+    __slots__ = ("_render",)
+
+    def __getattr__(self, name):  # only while the ops slot is unset
+        if name == "ops":
+            global _RUNS_RE
+            if _RUNS_RE is None:
+                import re
+
+                _RUNS_RE = re.compile(r"(\d+)(\D)")
+            # render order is top-first, the reverse of ops
+            ops = [[op, int(cnt)]
+                   for cnt, op in _RUNS_RE.findall(self._render)][::-1]
+            self.ops = ops
+            return ops
+        raise AttributeError(name)
+
+    def render(self) -> str:
+        try:
+            object.__getattribute__(self, "ops")
+        except AttributeError:
+            return self._render
+        return super().render()
+
+    def __bool__(self) -> bool:
+        try:
+            object.__getattribute__(self, "ops")
+        except AttributeError:
+            return bool(self._render)
+        return super().__bool__()
 
 
 def _yield_nw(row, roff, rlen, rrev, gstart, glen, grev, s: Cigar):
@@ -392,28 +452,462 @@ def _align_reads_host(fmi, genome, glen, codes_list, anchor_len, cfg, svc):
     return BatchExecutor(svc).run(gens)
 
 
+# --------------------------------------------------------------------------
+# The device engine: phase A (the automaton), phase B (the log replay)
+# --------------------------------------------------------------------------
+#
+# Reads are registered as one bank a chunk, read k's strands at rows 2k and
+# 2k + 1.  Phase A is one automaton launch (K10); right behind it on the
+# stream, phase B's job bucketing (a sort of the log's stitch slots by DP
+# shape) and one copy to the host of the bucket counts and the walk's flag.
+# Phase B waits for those counts, then launches the log stitch (K11a) once a
+# non-empty bucket and the compose (K11b) once, and copies the composed
+# runs back.  Reads the device cannot finish escape: a run-width overflow
+# is re-composed on the host from its log (the redo path), a truncated log,
+# a read live at the iteration cap or a head stitch that lands on 0 (the
+# strand-retry quirk, single_align.c:271) re-runs on the host engine.
+
+# test hooks: a nonzero cap overrides the automaton's (to force the capped
+# reads' escape); the compose's merged-run width (lowered to force redos)
+_TEST_CAP = 0
+_RUNS_K = cmp.RUNS_K
+
+# the DP shape grid of phase B's buckets: dp_shape's (a stitch's result does
+# not depend on its padding)
+_DP_GRAN = 32
+
+
+def _assemble_logs(svc, n, mode, curpos, strand, lp, ovf, kinds, roffs,
+                   rlens, glens, gstarts, capped=None, lanes=None):
+    """Phase B on the host, from logs fetched as numpy arrays: every log's
+    DP jobs through :func:`~bwt_tpu_torch.models.batch_exec.dp_jobs_blocks`,
+    then each read's CIGAR composed in numpy: NW and head blocks reversed
+    (the Cigar flip, smw.c:99-111, stack.c:51-59), M / I pushes in log
+    order, one adjacent-equal-op merge (push merging is associative over
+    adjacency, so one merge at the end equals the generator's nested ones).
+
+    Returns (results, fallback): results[k] = (pos, Cigar, rev) or (0, None,
+    False), None for the reads that need the host engine (a truncated log,
+    a read capped mid-flight, a head on 0).  ``lanes`` gives each row's lane
+    in the bank when the arrays are a subset of a chunk (the redo path)."""
+    mode, curpos, strand, lp = (np.asarray(x)[:n]
+                                for x in (mode, curpos, strand, lp))
+    ovf = np.asarray(ovf)[:n].astype(bool)
+    if capped is not None:
+        ovf = ovf | np.asarray(capped)[:n].astype(bool)
+    kinds, roffs, rlens, glens, gstarts = (
+        np.asarray(x)[:n] for x in (kinds, roffs, rlens, glens, gstarts))
+    slot = np.arange(au.LOGN)[None, :]
+    active = (mode != 0) & ~ovf
+    vmask = active[:, None] & (slot < np.minimum(lp, au.LOGN)[:, None])
+    jobmask = vmask & ((kinds == au.K_NW) | (kinds == au.K_SW)
+                       | (kinds == au.K_HEAD))
+    jk, jt = np.nonzero(jobmask)  # row-major: each read's log order
+    head_end = np.zeros(n, np.int64)
+    if jk.size:
+        jkind = kinds[jk, jt]
+        is_head = jkind == au.K_HEAD
+        is_sw = jkind == au.K_SW
+        jlane = jk if lanes is None else np.asarray(lanes)[jk]
+        endpos, blk_ops, blk_cnt, blk_len = dp_jobs_blocks(
+            svc, (2 * jlane + strand[jk]).astype(np.int32),
+            roffs[jk, jt].astype(np.int32), rlens[jk, jt].astype(np.int32),
+            is_head.astype(np.int32), gstarts[jk, jt].astype(np.int32),
+            glens[jk, jt].astype(np.int32), is_head.astype(np.int32),
+            (~is_sw).astype(np.int32))
+        # the Cigar flip: NW and head blocks are consumed top-first
+        Wb = blk_ops.shape[1]
+        tb = np.arange(Wb)[None, :]
+        nwj = np.nonzero(~is_sw)[0]
+        if nwj.size:
+            bl = blk_len[nwj][:, None]
+            idx = np.where(tb < bl, np.maximum(bl - 1 - tb, 0), tb)
+            blk_ops[nwj] = np.take_along_axis(blk_ops[nwj], idx, 1)
+            blk_cnt[nwj] = np.take_along_axis(blk_cnt[nwj], idx, 1)
+        head_end[jk[is_head]] = endpos[is_head]
+    else:
+        Wb = 1
+        blk_ops = np.zeros((0, 1), np.int8)
+        blk_cnt = np.zeros((0, 1), np.int32)
+
+    # (read, slot, run) -> one run stream a read, in log order
+    big_o = np.full((n, au.LOGN, Wb), -1, np.int8)
+    big_c = np.zeros((n, au.LOGN, Wb), np.int64)
+    mm = vmask & (kinds == au.K_M)
+    im = vmask & (kinds == au.K_I)
+    big_o[..., 0] = np.where(mm, 0, np.where(im, 1, -1))
+    big_c[..., 0] = np.where(mm | im, glens, 0)
+    if jk.size:
+        big_o[jk, jt] = blk_ops
+        big_c[jk, jt] = blk_cnt
+    flat_o = big_o.reshape(n, -1)
+    flat_c = big_c.reshape(n, -1)
+    keep = flat_o >= 0  # count-0 runs stay: the C stack prints "0M"
+    read_of = np.broadcast_to(np.arange(n)[:, None], flat_o.shape)[keep]
+    so = flat_o[keep]
+    sc = flat_c[keep]
+    if so.size:
+        new = np.empty(so.size, bool)
+        new[0] = True
+        new[1:] = (so[1:] != so[:-1]) | (read_of[1:] != read_of[:-1])
+        rid = np.cumsum(new) - 1
+        csum = np.bincount(rid, weights=sc).astype(np.int64).tolist()
+        rops = so[new].tolist()
+        bounds = np.searchsorted(read_of[new], np.arange(n + 1))
+    else:
+        csum, rops, bounds = [], [], np.zeros(n + 1, np.int64)
+
+    res = np.where(mode == 2, curpos,
+                   np.where(mode == 1, curpos - head_end, 0))
+    results: list = [None] * n
+    fallback: list[int] = []
+    for k, (m, r, st) in enumerate(zip(mode.tolist(), res.tolist(),
+                                       strand.tolist())):
+        if ovf[k]:
+            fallback.append(k)
+        elif m == 0:
+            results[k] = (0, None, False)
+        elif r == 0:
+            fallback.append(k)  # a head on 0: the strand-retry quirk
+        else:
+            c = Cigar()
+            c.ops = [[_OP_CHARS[rops[q]], csum[q]]
+                     for q in range(bounds[k], bounds[k + 1])]
+            results[k] = (r + 1, c, st == 1)
+    return results, fallback
+
+
+def _job_bucket_sort(mode, lp, ovf, kinds, rlens, glens, *, NB: int,
+                     NL2: int):
+    """Phase B's DP-shape bucketing of a chunk's log, on the log's device:
+    (order, counts), ``order`` the flat job ids (lane * LOGN + slot) sorted
+    by bucket (slots that are no job last), ``counts[b]`` bucket b's jobs.
+    Bucket b = (l1 - 1) * NL2 + (l2 - 1), l1 and l2 the read and genome
+    lengths in granules of ``_DP_GRAN``."""
+    dev = kinds.device
+    slot = torch.arange(au.LOGN, device=dev)[None, :]
+    vmask = ((mode != 0) & (ovf == 0))[:, None] & (
+        slot < lp.clamp(max=au.LOGN)[:, None])
+    isjob = vmask & ((kinds == au.K_NW) | (kinds == au.K_SW)
+                     | (kinds == au.K_HEAD))
+    l1 = (-torch.div(-rlens, _DP_GRAN, rounding_mode="floor")).clamp(min=1)
+    l2 = (-torch.div(-glens, _DP_GRAN, rounding_mode="floor")).clamp(min=1)
+    bid = torch.where(isjob, (l1 - 1) * NL2 + (l2 - 1), NB).reshape(-1)
+    order = torch.sort(bid.to(torch.int64), stable=True).indices
+    # index_add_, not bincount: bincount reads its input's maximum back to
+    # the host, a synchronisation in the middle of the queued work
+    counts = torch.zeros(NB + 1, dtype=torch.int32, device=dev).index_add_(
+        0, bid.to(torch.int64), torch.ones_like(bid, dtype=torch.int32))
+    return order.to(torch.int32), counts[:NB]
+
+
+def _bucket_ids(order, offset: int, count: int):
+    """One bucket's (lane, slot) job lists, (count,) int32 each."""
+    ids = order[offset:offset + count]
+    return (torch.div(ids, au.LOGN, rounding_mode="floor").contiguous(),
+            (ids % au.LOGN).contiguous())
+
+
+class _Chunk:
+    """One chunk of the device engine on its way through the pipeline."""
+
+    __slots__ = ("svc", "sub", "log", "order", "NL2", "small", "comp",
+                 "stats")
+
+    def __init__(self, svc, sub, log, order, NL2, small, stats):
+        self.svc, self.sub, self.log, self.order = svc, sub, log, order
+        self.NL2, self.small, self.stats = NL2, small, stats
+        self.comp = None
+
+
+def _align_chunk_dispatch(fmi, glen, codes_list, anchor_len, resolve, svc,
+                          seed, stats) -> _Chunk:
+    """Phase A of one chunk: register the reads as one bank, launch the
+    automaton and, behind it, the job bucketing and the copy back of the
+    bucket counts and the walk's flag; nothing waits for the device."""
+    n = len(codes_list)
+    dev = fmi.device
+    svc.reset_reads()
+    _base, rl = svc.add_reads_batch(codes_list, with_revcomp=True)
+    bank8 = svc.bank8
+    Bp, Lb = bank8.shape[0] // 2, bank8.shape[1]
+    lens = np.zeros(Bp, np.int32)
+    lens[:n] = rl
+    live0 = torch.arange(Bp, device=dev) < n
+    before = au.ALIGN_LAUNCHES
+    log = au.align_automaton_packed(
+        fmi, bank8, _to_device(lens, dev), live0, glen,
+        None if seed is None else seed.rows, anchor_len=anchor_len,
+        resolve=svc._has_n if resolve is None else resolve,
+        cap_steps=_TEST_CAP, seed_k=0 if seed is None else seed.k,
+        plain=svc.svc_impl == "plain")
+    stats["align_launches"] += au.ALIGN_LAUNCHES - before
+    stats["chunks"] += 1
+    v = au.align_unpack(log)
+    NL1 = -(-Lb // _DP_GRAN)
+    NL2 = -(-(Lb + 10) // _DP_GRAN)  # a stitch's genome span <= Lb + 10
+    order, counts = _job_bucket_sort(v["mode"], v["lp"], v["ovf"],
+                                     v["kinds"], v["rlens"], v["glens"],
+                                     NB=NL1 * NL2, NL2=NL2)
+    small = _to_host_async(torch.cat([counts, log[-4:]]))
+    return _Chunk(svc, codes_list, log, order, NL2, small, stats)
+
+
+def _assemble_dispatch(fmi, c: _Chunk) -> None:
+    """The device half of phase B: wait for the chunk's bucket counts (and
+    raise what the walk's flag says), launch the log stitch once a
+    non-empty bucket and the compose once, and start the copy of the
+    composed rows back."""
+    svc, stats = c.svc, c.stats
+    small = _host_array(c.small)
+    counts, flag = small[:-4], small[-4:]
+    au.align_automaton_raise(fmi, c.log, flag)
+    Bp = au.align_lanes(c.log)
+    acc = dpw.log_acc(Bp, fmi.device)
+    plain = svc.dp_impl == "plain"
+    bank = svc.bank
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    before = dpw.LOG_STITCH_LAUNCHES, cmp.COMPOSE_LAUNCHES
+    for b in np.nonzero(counts)[0].tolist():
+        l1, l2 = divmod(b, c.NL2)
+        jk, jt = _bucket_ids(c.order, int(offs[b]), int(counts[b]))
+        dpw.dp_log_stitch(c.log, bank, svc.genome_dev, jk, jt, acc,
+                          L1=_DP_GRAN * (l1 + 1), L2=_DP_GRAN * (l2 + 1),
+                          scoring=svc.scoring, plain=plain)
+        stats["buckets"] += 1
+    c.comp = _to_host_async(cmp.compose(c.log, acc, K=_RUNS_K, plain=plain))
+    stats["log_stitch_launches"] += dpw.LOG_STITCH_LAUNCHES - before[0]
+    stats["compose_launches"] += cmp.COMPOSE_LAUNCHES - before[1]
+
+
+def _assemble_fetch(c: _Chunk):
+    """The host half of phase B: the chunk's (pos, Cigar, rev) results from
+    its composed rows, the reads to re-compose on the host (redo) and the
+    reads to re-run on the host engine (fallback).  Returns (results,
+    fallback, redo)."""
+    n = len(c.sub)
+    rows = _host_array(c.comp)[:n]
+    res, meta, nrun = rows[:, 0], rows[:, 1], rows[:, 2]
+    mlv = meta & 3
+    strandv = (meta >> 2) & 1
+    cpd = ((meta >> 6) & 1).astype(bool)
+    ovfl = ((meta >> 5) & 1).astype(bool)  # a truncated log
+    # a run count past a compose width (the RLE block, the stream, the
+    # merged runs, an int16 count, the 8 runs of the row): re-compose
+    badrv = (((meta >> 3) & 3) != 0) | (((meta >> 7) & 1) != 0)
+    aligned = (mlv != 0) & ~cpd & ~ovfl
+    ok = aligned & ~badrv & (res != 0)
+    results: list = [None] * n
+    for k in np.nonzero((mlv == 0) & ~cpd)[0].tolist():
+        results[k] = (0, None, False)
+    fallback = np.nonzero(cpd | ((mlv != 0) & ~cpd & ovfl)
+                          | (aligned & ~badrv & (res == 0)))[0].tolist()
+    redo = np.nonzero(aligned & badrv)[0].tolist()
+    c.stats["capped"] += int(cpd.sum())
+    okl = np.nonzero(ok)[0]
+    if okl.size:
+        # the runs top-first ("<count><op>" a run, columns reversed) as a
+        # fixed-width byte matrix: digits by division, leading zeros masked
+        # and dropped by the compress
+        m, K = okl.size, 8
+        ops = ((rows[okl, 3].astype(np.uint32)[:, None]
+                >> (2 * np.arange(K, dtype=np.uint32))[None, :]) & 3
+               ).astype(np.int64) - 1
+        cnts = rows[okl, 4:12].astype(np.int64)
+        valid = np.arange(K)[None, :] < nrun[okl, None]
+        W = 6  # up to 5 digits (a count is below 32768) and the op
+        bm = np.zeros((m, K, W), np.uint8)
+        rem = cnts
+        started = np.zeros((m, K), bool)
+        for q, p10 in enumerate((10000, 1000, 100, 10)):
+            d = rem // p10
+            rem = rem - d * p10
+            started |= d > 0
+            bm[..., q] = np.where(started, 48 + d, 0)
+        bm[..., 4] = 48 + rem
+        bm[..., 5] = _OPC_BYTES[ops]
+        bm[~valid] = 0
+        flatm = bm[:, ::-1, :].reshape(m, K * W)
+        mask = flatm != 0
+        offs = np.concatenate([[0], np.cumsum(mask.sum(1))]).tolist()
+        flat = flatm[mask].tobytes().decode()
+        posl = (res[okl].astype(np.int64) + 1).tolist()
+        revl = (strandv[okl] == 1).tolist()
+        new_c = _RenderedCigar.__new__
+        for j, k in enumerate(okl.tolist()):
+            cig = new_c(_RenderedCigar)
+            cig._render = flat[offs[j]:offs[j + 1]]
+            results[k] = (posl[j], cig, revl[j])
+    return results, fallback, redo
+
+
+def _take_rows(log, sel: np.ndarray) -> dict:
+    """The log rows of lanes ``sel`` of a packed automaton output, as numpy
+    arrays: one gather and one copy."""
+    v = au.align_unpack(log)
+    idx = torch.from_numpy(np.asarray(sel, np.int64)).to(log.device)
+    names = au.ALIGN_COLS + au.LOG_COLS
+    got = torch.cat([v[c][idx].reshape(len(sel), -1) for c in names],
+                    1).cpu().numpy()
+    out, at = {}, 0
+    for c in names:
+        w = 1 if c in au.ALIGN_COLS else au.LOGN
+        out[c] = got[:, at] if w == 1 else got[:, at:at + w]
+        at += w
+    return out
+
+
+def _redo_host(svc, results, fallback, redo, log):
+    """Re-compose on the host the reads whose runs overflowed a width of the
+    device compose (from their fetched logs), in place of their results."""
+    sel = np.asarray(redo, np.int64)
+    r = _take_rows(log, sel)
+    rsub, fsub = _assemble_logs(
+        svc, len(sel), r["mode"], r["curpos"], r["strand"], r["lp"],
+        np.zeros(len(sel), bool), r["kinds"], r["roffs"], r["rlens"],
+        r["glens"], r["gstarts"], lanes=sel)
+    for b, k in enumerate(redo):
+        results[k] = rsub[b]
+    fallback.extend(redo[b] for b in fsub)
+    return results, fallback
+
+
+def _run_fallback(genome, glen, codes_list, anchor_len, cfg, svc, results,
+                  fallback):
+    """Re-run the escaped reads (a truncated log, the cap, a head on 0) on
+    the host engine, over the chunk's bank."""
+    if fallback:
+        gens = [_read_gen(genome, glen, 2 * k, len(codes_list[k]), 2 * k + 1,
+                          len(codes_list[k]), anchor_len, True,
+                          cfg.spec_depth, cfg.isa_spec_depth)
+                for k in fallback]
+        for k, o in zip(fallback, BatchExecutor(svc).run(gens)):
+            results[k] = o
+    return results
+
+
+def _align_reads_device(fmi, genome, glen, codes_list, anchor_len, cfg, svc):
+    """The device engine over all the reads; the same results as the host
+    engine.  Writes its counters into ``svc.last_stats``: ``chunks``,
+    ``align_launches`` (K10), ``buckets`` and ``log_stitch_launches``
+    (K11a), ``compose_launches`` (K11b), ``capped``, ``redo`` and
+    ``fallback`` (reads that took each escape), and the host's seconds in
+    each stage: ``t_a`` (registering a chunk, its upload, the automaton's
+    launch and the bucketing queued behind it), ``t_b`` (the wait for the
+    bucket counts, then the stitch and compose launches), ``t_fetch`` (the
+    wait for the composed rows, then the results built from them) and
+    ``t_escapes``.
+
+    The cyclic garbage collector is paused for the call: the results are
+    about three objects a read that live on, so its passes would scan the
+    whole heap again and again, and the engine makes no cycles."""
+    import gc
+
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return _align_reads_device_inner(fmi, genome, glen, codes_list,
+                                         anchor_len, cfg, svc)
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+def _align_reads_device_inner(fmi, genome, glen, codes_list, anchor_len, cfg,
+                              svc):
+    if fmi.isa_samples is None:
+        raise ValueError("the device engine requires an index with "
+                         "isa_samples")
+    n = len(codes_list)
+    chunk = cfg.search_batch
+    seed = svc.seed  # built once, on the caller's service
+    stats = dict(chunks=0, align_launches=0, buckets=0, log_stitch_launches=0,
+                 compose_launches=0, capped=0, redo=0, fallback=0, t_a=0.0,
+                 t_b=0.0, t_fetch=0.0, t_escapes=0.0)
+
+    def clocked(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        stats[key] += time.perf_counter() - t0
+        return out
+
+    if n <= chunk:
+        resolve = None  # the chunk's own N scan
+    elif isinstance(codes_list, np.ndarray):
+        resolve = bool((codes_list == 5).any())
+    else:
+        resolve = any(bool((np.asarray(r) == 5).any()) for r in codes_list)
+
+    def service():
+        if n <= chunk:
+            return svc
+        s = QueryService(fmi, svc.genome_dev, cfg)
+        s.svc_impl, s.dp_impl = svc.svc_impl, svc.dp_impl
+        return s
+
+    # a pipeline of three stages over the chunks: chunk i's automaton is
+    # queued first, then chunk i - 1's phase B (its wait on the bucket counts
+    # ends with its own automaton, while chunk i's runs), then the host half
+    # of chunk i - 2, whose rows were copied while the card ran chunk i - 1
+    done, waiting, prev = [], [], None
+    for lo in range(0, max(n, 1), chunk):
+        sub = codes_list[lo:lo + chunk]
+        c = clocked("t_a", _align_chunk_dispatch, fmi, glen, sub, anchor_len,
+                    resolve, service(), seed, stats)
+        if prev is not None:
+            clocked("t_b", _assemble_dispatch, fmi, prev)
+            waiting.append(prev)
+        if len(waiting) > 1:
+            e = waiting.pop(0)
+            done.append((e, *clocked("t_fetch", _assemble_fetch, e)))
+        prev = c
+    clocked("t_b", _assemble_dispatch, fmi, prev)
+    waiting.append(prev)
+    done += [(e, *clocked("t_fetch", _assemble_fetch, e)) for e in waiting]
+
+    # the escapes last, chunk by chunk: the host re-compose, then the host
+    # engine
+    t0 = time.perf_counter()
+    results: list = []
+    for e, res_i, fb, redo in done:
+        if redo:
+            stats["redo"] += len(redo)
+            res_i, fb = _redo_host(e.svc, res_i, fb, redo, e.log)
+        stats["fallback"] += len(fb)
+        results.extend(_run_fallback(genome, glen, e.sub, anchor_len, cfg,
+                                     e.svc, res_i, fb))
+    stats["t_escapes"] = time.perf_counter() - t0
+    svc.last_stats = stats
+    return results
+
+
 def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
                 config=None, service: QueryService | None = None,
                 with_strand: bool = False, engine: str = "auto", mesh=None):
-    """Align a batch of reads (ASCII strings or code arrays).
+    """Align a batch of reads (ASCII strings, code arrays, or a 2-D uint8
+    code matrix).
 
     Returns a list of (position, Cigar | None): the 1-based genome
     position of the alignment start (0 = unaligned) and its CIGAR, or
     (position, Cigar, reverse) triples with ``with_strand``.  A reusable
     ``service`` keeps the genome upload across calls.
 
-    ``engine``: "auto" and "host" run the host-generator engine, whose
-    output equals the JAX package's for either of its engines.  The
-    device automaton ("device") and ``mesh`` are not ported yet."""
+    ``engine``: "device" runs the device engine (the automaton and its
+    phase B, :func:`_align_reads_device`), "host" the host generators over
+    the executor; "auto" (the default) takes the device engine when the
+    index has ``isa_samples`` and no read is longer than 32,767 bases (the
+    log's int16 columns), as ``bwt_tpu`` does, else the host engine.  A
+    longer read raises ValueError with "device".  The results are the same
+    either way, and equal the JAX package's for either of its engines.
+    ``mesh`` is not ported yet."""
     from bwt_tpu_torch.config import DEFAULT
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "device" or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "the device automaton and mesh= are not ported yet (ROADMAP "
-            "Queue 1: the device automaton and its fused phase B; "
-            "multi-device); use engine='host' or 'auto'")
+            "align_reads(mesh=...) is not ported (ROADMAP Queue 1: "
+            "multi-device)")
     if config is not None:
         cfg = config
     elif service is not None:
@@ -433,20 +927,57 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
             fmi, service.genome_dev if service.genome_dev is not None
             else genome, cfg)
     svc = service if service is not None else QueryService(fmi, genome, cfg)
-    codes_list = []
-    for r in reads:
-        fwd = (codec.encode_read(r) if isinstance(r, (str, bytes))
-               else np.asarray(r, np.uint8))
-        if len(fwd) > cfg.max_read_len:
+    if isinstance(reads, np.ndarray) and reads.ndim == 2:
+        # a matrix of equal-length reads skips the per-read loop
+        codes_list = np.ascontiguousarray(reads).astype(np.uint8, copy=False)
+        lengths = [codes_list.shape[1]] if codes_list.shape[0] else []
+    else:
+        codes_list = [codec.encode_read(r) if isinstance(r, (str, bytes))
+                      else np.asarray(r, np.uint8) for r in reads]
+        lengths = [len(c) for c in codes_list]
+    max_len = max(lengths, default=0)
+    if max_len > cfg.max_read_len:
+        raise ValueError(
+            f"read length {max_len} exceeds config.max_read_len "
+            f"{cfg.max_read_len} (single_align.c:369's buffer bound)")
+    use_dev = engine == "device" or (
+        engine == "auto" and fmi.isa_samples is not None)
+    if use_dev and max_len > 32767:
+        if engine == "device":
             raise ValueError(
-                f"read length {len(fwd)} exceeds config.max_read_len "
-                f"{cfg.max_read_len} (single_align.c:369's buffer bound)")
-        codes_list.append(fwd)
-    results = _align_reads_host(fmi, genome, glen, codes_list, anchor_len,
-                                cfg, svc)
+                f"read length {max_len} exceeds the device automaton's "
+                "int16 stitch-log width (32767); use engine='host'")
+        use_dev = False
+    if use_dev:
+        results = _align_reads_device(fmi, genome, glen, codes_list,
+                                      anchor_len, cfg, svc)
+    else:
+        results = _align_reads_host(fmi, genome, glen, codes_list,
+                                    anchor_len, cfg, svc)
     if with_strand:
         return results
     return [(p, c) for p, c, _ in results]
+
+
+def align_read_anchored(fmi: FMIndex, genome, read, *,
+                        anchor_len: int = DEFAULT_ANCHOR_LEN):
+    """Single-read anchored alignment, without the reverse-complement retry
+    (align_read_anchored, single_align.c:163-298).  Returns
+    (position_0based, Cigar)."""
+    genome = _as_genome_codes(genome)
+    pattern = (codec.encode_read(read) if isinstance(read, (str, bytes))
+               else np.asarray(read, np.uint8))
+    svc = QueryService(fmi, genome)
+    row = svc.add_read(pattern)
+    s = Cigar()
+
+    def gen():
+        return (yield from align_read_anchored_gen(
+            genome, len(genome), row, len(pattern), anchor_len, s,
+            fmi.isa_samples is not None))
+
+    (pos,) = BatchExecutor(svc).run([gen()])
+    return pos, s
 
 
 def align_read(fmi: FMIndex, genome, read, *, thresh: int | None = None,

@@ -103,10 +103,42 @@ def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def _to_host_async(t: torch.Tensor):
+    """Start the copy of a device tensor to the host: (host tensor, event).
+    From the card into pinned memory, queued behind the work already on the
+    stream, with an event the caller waits on (``event.synchronize()``)
+    before reading; a CPU tensor is returned as it is, with no event."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_array(pend) -> np.ndarray:
+    """The numpy array of a :func:`_to_host_async` copy, once it is done."""
+    host, done = pend
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
 def dp_shape(rlen, glen):
-    """Padded shape of one DP job: each dim a multiple of 32, floor 32."""
+    """Padded shape of one DP job: each dim a multiple of 32, floor 32.  The
+    one shape grid of every DP path (the executor's rounds,
+    :func:`dp_jobs_blocks`, the aligner's phase B)."""
     return (max(32, -(-int(rlen) // 32) * 32),
             max(32, -(-int(glen) // 32) * 32))
+
+
+def dp_shapes(rlen, glen):
+    """:func:`dp_shape` over numpy arrays."""
+    rl = np.asarray(rlen, np.int64)
+    gl = np.asarray(glen, np.int64)
+    return (np.maximum(32, -(-rl // 32) * 32),
+            np.maximum(32, -(-gl // 32) * 32))
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +246,82 @@ def _ops_to_runs(ops_row: np.ndarray, i_resid: int, j_resid: int):
     if j_resid:
         runs.append(("D", int(j_resid)))
     return runs
+
+
+def dp_jobs_blocks(svc, row, roff, rlen, rrev, gstart, glen, grev,
+                   want_nw):
+    """Run a flat array of DP jobs (one stitch call per padded shape, as the
+    executor's :meth:`BatchExecutor._start_dp` groups them) and return the
+    results as arrays, for the aligner's host compose:
+
+      endpos  (J,) int32, the nw endpoint minus 1 (the executor's "nw"
+              reply);
+      blk_ops (J, W) int8, run ops 0 / 1 / 2 in push order with the I / D
+              border residuals appended (smw.c:99-104), -1 padding;
+      blk_cnt (J, W) int32, run lengths;
+      blk_len (J,) int32, the runs of each job.
+
+    W grows past RLE_R + 2 for the jobs with more runs than the compact
+    form holds, which are decoded from their raw op rows."""
+    J = len(row)
+    bank = svc.bank
+    buckets: dict[tuple[int, int], list[int]] = {}
+    for j in range(J):
+        buckets.setdefault(dp_shape(rlen[j], glen[j]), []).append(j)
+    pend = []
+    for (L1, L2), members in buckets.items():
+        m = np.asarray(members)
+        f = np.zeros((8, _pow2(len(m))), np.int32)
+        for k, a in enumerate((row, roff, rlen, rrev, gstart, glen, grev,
+                               want_nw)):
+            f[k, :len(m)] = np.asarray(a)[m]
+        small, ops = _stitch_fn(svc.dp_impl == "plain")(
+            bank, svc.genome_dev, *torch.from_numpy(f).to(svc.device).unbind(0),
+            L1=L1, L2=L2, scoring=svc.scoring)
+        pend.append((small.cpu().numpy()[:len(m)], ops, m))
+
+    W = _RLE_R + 2
+    for small, _, _ in pend:
+        W = max(W, int(small[:, 3].max(initial=0)) + 2)
+    endpos = np.zeros(J, np.int32)
+    blk_ops = np.full((J, W), -1, np.int8)
+    blk_cnt = np.zeros((J, W), np.int32)
+    blk_len = np.zeros(J, np.int32)
+    t = np.arange(_RLE_R)
+    for small, ops_dev, m in pend:
+        maxloc, i_res, j_res, nrun, vals, counts = dp_wavefront.unpack(small)
+        B = len(m)
+        nr = np.minimum(nrun, _RLE_R)
+        valid = t[None, :] < nr[:, None]
+        bo = np.full((B, W), -1, np.int8)
+        bc = np.zeros((B, W), np.int32)
+        bo[:, :_RLE_R] = np.where(valid, vals, -1)
+        bc[:, :_RLE_R] = np.where(valid, counts, 0)
+        rows = np.arange(B)
+        has_i = i_res > 0
+        bo[rows[has_i], nr[has_i]] = 1
+        bc[rows[has_i], nr[has_i]] = i_res[has_i]
+        cd = nr + has_i
+        has_j = j_res > 0
+        bo[rows[has_j], cd[has_j]] = 2
+        bc[rows[has_j], cd[has_j]] = j_res[has_j]
+        bl = cd + has_j
+        over = np.nonzero(nrun > _RLE_R)[0]
+        if over.size:
+            ops_np = ops_dev.cpu().numpy()
+            for k in over:
+                runs = _ops_to_runs(ops_np[k], int(i_res[k]), int(j_res[k]))
+                bo[k] = -1
+                bc[k] = 0
+                for q, (oc, cn) in enumerate(runs):
+                    bo[k, q] = _OP_CHARS.index(oc)
+                    bc[k, q] = cn
+                bl[k] = len(runs)
+        endpos[m] = maxloc - 1
+        blk_ops[m] = bo
+        blk_cnt[m] = bc
+        blk_len[m] = bl
+    return endpos, blk_ops, blk_cnt, blk_len
 
 
 # --------------------------------------------------------------------------

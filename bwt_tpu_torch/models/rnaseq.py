@@ -39,7 +39,7 @@ import torch
 from bwt_tpu_torch import codec
 from bwt_tpu_torch.index import FMIndex
 from bwt_tpu_torch.models.batch_exec import (
-    BatchExecutor, QueryService, _to_device)
+    BatchExecutor, QueryService, _host_array, _to_device, _to_host_async)
 from bwt_tpu_torch.ops import automaton
 
 # test hook: a nonzero value overrides the automaton's iteration cap, to
@@ -298,24 +298,15 @@ def _rna_seq_device_inner(fmi, reads, *, config=None, service=None):
             plain=plain)
         stats["automaton_launches"] += automaton.AUTOMATON_LAUNCHES - before
         stats["chunks"] += 1
-        if dev.type != "cuda":
-            return out, None
         # queued right behind this chunk's launch, so that its fetch does
         # not wait for the next chunk's
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        return _to_host_async(out)
 
     def fetch(pend, sub):
         """A chunk's results, once its copy back is done; reads still live
         at the iteration cap re-run on the host generators (their device
         state is mid-flight), which gives their values unchanged."""
-        host, done = pend
-        if done is not None:
-            done.synchronize()
-        out = host.numpy()
+        out = _host_array(pend)
         automaton.automaton_raise(fmi, out)
         m = len(sub)
         res, capped, iters = (a[:m] for a in automaton.unpack(out))

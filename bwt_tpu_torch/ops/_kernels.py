@@ -131,7 +131,13 @@ def library() -> ctypes.CDLL:
                     ("seed_rows_launch", [I, P, I, P, P, P, P]),
                     ("rnaseq_automaton_launch",
                      [P, I, I, P, P, I, I, I, I, P, I, I, P, I, P, P, P, I,
-                      I, I, P, I, P, P])):
+                      I, I, P, I, P, P]),
+                    ("align_automaton_launch",
+                     [P, I, I, P, P, I, I, I, I, P, I, I, P, I, P, P, P, I,
+                      I, I, P, I, P, P]),
+                    ("dp_log_stitch_launch",
+                     [P, I, P, I, P, I, P, P] + [I] * 9 + [P, P, P]),
+                    ("compose_launch", [P, I, P, I, I, I, P, P])):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

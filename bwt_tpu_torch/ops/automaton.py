@@ -1,5 +1,6 @@
 """The device automatons: a whole main loop's phase machine, one read a lane,
-run on the device to its end.
+run on the device to its end.  Two of them: rna_seq's (K9) and the
+aligner's (K10), below it.
 
 ``rna_seq_automaton`` is the counterpart of
 ``bwt_tpu.models.rnaseq._rna_seq_automaton``, the rna_seq main loop
@@ -282,3 +283,363 @@ def rna_seq_automaton(fmi: FMIndex, bank, lens, live0, seed_rows=None, *,
     automaton_raise(fmi, out)
     res, capped, _ = unpack(out)
     return res, capped
+
+
+# --------------------------------------------------------------------------
+# The aligner's automaton (single_align's align_read_anchored and its
+# forward / reverse main loop), K10
+# --------------------------------------------------------------------------
+#
+# The counterpart of ``bwt_tpu.models.aligner._align_automaton``: every
+# iteration a live read issues one service request (``mms`` of
+# ``bank[row, 0:ln]`` in ANCH, ``mms_ext`` of ``bank[row, 0:ln-g]`` with
+# curpos / curgap in EXT, none in HEAD) and moves its phase by the reply.
+# DP stitches never feed back into the FM control flow, so the automaton only
+# records them, with the M / I pushes between them, in a 16-slot log a read;
+# phase B replays the log.  A reset (s.reset(), single_align.c:276) rewinds
+# the log pointer.  The log's columns keep ``bwt_tpu``'s narrow types as
+# values: roffs, rlens and glens wrap as int16 where they are written (kinds
+# are 1..5), and writes past slot 15 are dropped and set ``ovf``.
+#
+# On the card this is one launch of ``csrc/align_automaton.cu`` (K10): one
+# thread a read runs the forward strand, then the reverse one, over the
+# service kernel's lane body, its phase state in registers and its log slots
+# written straight into the output.  Not carried over from ``bwt_tpu``: the
+# compaction ladder (a thread stops on its own), the speculative anchor
+# retries (``spec_anch``) and the sharded form (``_align_automaton_mesh``).
+
+A_DONE, A_ANCH, A_EXT, A_HEAD = 0, 1, 2, 3
+K_NW, K_SW, K_M, K_I, K_HEAD = 1, 2, 3, 4, 5
+LOGN = 16
+
+# the per-read columns of a packed K10 output, then the five log columns
+ALIGN_COLS = ("mode", "curpos", "strand", "lp", "ovf", "capped", "iters")
+LOG_COLS = ("kinds", "roffs", "rlens", "glens", "gstarts")
+
+# kernel launches made by align_automaton_packed (a plain counter; callers
+# reset it to show that a run went through the kernel)
+ALIGN_LAUNCHES = 0
+
+
+def align_default_cap(Lb: int) -> int:
+    """The aligner automaton's iteration cap for a bank of ``Lb`` columns:
+    every phase transition consumes read characters toward a budget or ends
+    the strand, so 8 Lb plus slack is never reached by a known input."""
+    return 8 * Lb + 64
+
+
+def wrap_signed(x, bits: int):
+    """Integer values as a ``bits``-bit signed column of ``bwt_tpu`` keeps
+    them (its int8 / int16 casts)."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def align_flag_offset(Bp: int) -> int:
+    """Where the walk's overrun flag starts in a packed K10 output of ``Bp``
+    reads: after the seven columns and the five (Bp, 16) log columns, at an
+    even offset."""
+    return ((len(ALIGN_COLS) + len(LOG_COLS) * LOGN) * Bp + 1) & ~1
+
+
+def align_lanes(out) -> int:
+    """The reads ``Bp`` of a packed K10 output."""
+    return (len(out) - 4) // (len(ALIGN_COLS) + len(LOG_COLS) * LOGN)
+
+
+def align_unpack(out) -> dict:
+    """The named views of a packed K10 output (a tensor or numpy array):
+    the seven (Bp,) columns and the five (Bp, LOGN) log columns."""
+    Bp = align_lanes(out)
+    views = {c: out[k * Bp:(k + 1) * Bp] for k, c in enumerate(ALIGN_COLS)}
+    base = len(ALIGN_COLS) * Bp
+    for k, c in enumerate(LOG_COLS):
+        lo = base + k * LOGN * Bp
+        views[c] = out[lo:lo + LOGN * Bp].reshape(Bp, LOGN)
+    return views
+
+
+def align_automaton_plain(fmi: FMIndex, bank, lens, live0, glen: int,
+                          seed_rows=None, *, anchor_len: int, resolve: bool,
+                          cap_steps: int = 0, seed_k: int = 0,
+                          on_round=None):
+    """The plain PyTorch version of K10, on any device: every live read
+    takes its iteration together, one service round an iteration, until no
+    read is live or the cap; a line-for-line twin of ``bwt_tpu``'s
+    while_loop body.  ``bank`` (2 Bp, Lb) integer codes, read k's forward
+    strand at row 2k and its reverse complement at 2k + 1; ``lens`` (Bp,)
+    int32 (0 on padding); ``live0`` (Bp,) bool; ``glen`` the genome's
+    length.  ``on_round(fields, cols)``, when given, sees each round's seven
+    lane fields and 13 result columns.
+
+    Returns a dict of int32 tensors: ``mode`` (0 unaligned, 1 ended at the
+    in-loop head stitch, 2 a head with ln == 0), ``curpos``, ``strand``,
+    ``lp`` (the log pointer), ``ovf``, ``capped`` (live at the cap: the
+    state is mid-flight), ``iters`` (iterations each read ran), (Bp,) each,
+    and the log: ``kinds``, ``roffs``, ``rlens``, ``glens`` (count of an M /
+    I entry), ``gstarts``, (Bp, LOGN) each.  A walk from a row past the
+    suffix array raises RuntimeError."""
+    Bp = lens.shape[0]
+    Lb = bank.shape[1]
+    dev = bank.device
+    cap = cap_steps if cap_steps else align_default_cap(Lb)
+    bank = bank.to(torch.int32)
+    lane = torch.arange(Bp, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(Bp, dtype=torch.int32, device=dev)
+    slots = torch.arange(LOGN, dtype=torch.int32, device=dev)[None, :]
+    olen = lens.to(dev, torch.int32)
+    am0 = olen // 10  # anchmisses budget (single_align.c:170)
+    can = (olen > anchor_len) & (am0 > 0)
+    ph = torch.where(live0.to(dev, torch.bool) & can, A_ANCH,
+                     A_DONE).to(torch.int32)
+    strand, ln, am, nm = zeros, olen, am0, zeros
+    curpos = torch.full((Bp,), -1, dtype=torch.int32, device=dev)
+    anchlen, g, lp, mode, iters = zeros, zeros, zeros, zeros, zeros
+    ovf = torch.zeros(Bp, dtype=torch.bool, device=dev)
+    log = {c: torch.zeros((Bp, LOGN), dtype=torch.int32, device=dev)
+           for c in LOG_COLS}
+
+    def w(c, x):
+        return torch.where(c, x, 0)
+
+    it = 0
+    while it < cap and bool((ph != A_DONE).any()):
+        is_anch, is_ext, is_head = ph == A_ANCH, ph == A_EXT, ph == A_HEAD
+        opc = torch.where(is_anch, sv.OP_MMS,
+                          torch.where(is_ext, sv.OP_MEXT, sv.OP_NONE))
+        ln_op = torch.where(is_anch, ln, w(is_ext, ln - g))
+        fields = [x.to(torch.int32) for x in (
+            opc, 2 * lane + strand, zeros, ln_op, w(is_ext, curpos),
+            w(is_ext, g), zeros)]
+        cols = sv.service_round_plain(
+            fmi, bank, *fields, resolve=resolve, ext=True,
+            seed_rows=seed_rows, seed_k=seed_k)
+        if on_round is not None:
+            on_round(fields, cols)
+        seglen, osp, oep = cols[sv.MMS_M], cols[sv.OSP], cols[sv.OEP]
+        pos, wbest = cols[sv.POS], cols[sv.WBEST]
+
+        # ANCH: one mms of pattern[:ln] (single_align.c:174-189)
+        a_miss = (seglen < anchor_len) | (oep - osp > 1)
+        a_hunt = (ln - 3 > anchor_len) & (am - 1 > 0)  # retry budget
+        a_ln = ln - seglen
+        a_nm = olen // 5
+        buflen0 = 10 + (olen - ln)  # 10 + the tail beyond the anchor
+        a_buf = torch.where(buflen0 + pos + seglen > glen,
+                            glen - pos - seglen, buflen0)
+        a_rlen = olen - ln
+        a_low = a_nm < 1  # olen < 5: `if (nmisses < 1) continue;`
+        a_re = (a_ln > anchor_len) & (am > 0)
+        a_ext_c = (a_ln > a_nm) & (a_ln > 4)
+
+        # EXT: one curgap attempt (single_align.c:224-247)
+        e_rej = (osp >= oep) | (wbest < 0) | \
+            ((wbest + seglen - curpos).abs() - g > 3)
+        e_more = g + 1 < 10
+        e_nm = nm - g
+        e_buf = curpos - (wbest + seglen)
+        e_neg = e_buf < 0
+        e_st0 = ln - g
+        e_st = torch.where(e_st0 < 0, e_st0 + olen, e_st0)  # the UB wrap
+        e_rl = (ln - e_st).clamp(min=0)
+        e_ln = ln - (seglen + g)
+        e_ext_c = (e_ln > e_nm) & (e_ln > 4) & (e_nm > 0)
+
+        # HEAD: record the head stitch (single_align.c:256-272)
+        h_buf = torch.minimum(ln + 10, curpos)
+
+        # log writes: at most two entries an iteration
+        a_acc = is_anch & ~a_miss
+        e_acc = is_ext & ~e_rej
+        w0 = (a_acc & (a_rlen != 0)) | e_acc | (is_head & (ln > 0))
+        k0 = torch.where(is_anch, K_NW, torch.where(
+            is_ext, torch.where(e_neg, K_I, K_SW), K_HEAD))
+        r0 = torch.where(is_anch, ln, w(is_ext & ~e_neg, e_st))
+        l0 = torch.where(is_anch, a_rlen, torch.where(
+            is_ext, w(~e_neg, e_rl), ln))
+        gl0 = torch.where(is_anch, a_buf.clamp(min=0), torch.where(
+            is_ext, e_buf.abs(), h_buf))
+        gs0 = torch.where(is_anch, pos + seglen, torch.where(
+            is_ext, w(~e_neg, wbest + seglen), curpos - h_buf))
+        w1 = a_acc | e_acc  # the M push after a stitch
+        s1 = lp + w0.to(torch.int32)
+        m0 = w0[:, None] & (slots == lp[:, None])
+        m1 = w1[:, None] & (slots == s1[:, None])
+        for c, v0, v1 in (("kinds", k0, K_M), ("roffs", wrap_signed(r0, 16), 0),
+                          ("rlens", wrap_signed(l0, 16), 0),
+                          ("glens", wrap_signed(gl0, 16),
+                           wrap_signed(seglen, 16)),
+                          ("gstarts", gs0, 0)):
+            x = torch.where(m0, v0.to(torch.int32)[:, None], log[c])
+            log[c] = torch.where(m1, torch.as_tensor(
+                v1, dtype=torch.int32, device=dev).reshape(-1, 1), x)
+        lp = s1 + w1.to(torch.int32)
+        ovf = ovf | (lp > LOGN)
+
+        # the next state, by phase.  RESET (single_align.c:274-276): ln -=
+        # anchlen; anchmisses -= anchlen / 10; s.reset(); the outer loop's
+        # test -> ANCH (nmisses 0) or the strand fails (-1)
+        def reset_from(x_ln, x_am):
+            r_ln = x_ln - anchlen
+            r_am = x_am - anchlen // 10
+            return (r_ln > anchor_len) & (r_am > 0), r_ln, r_am
+
+        a_ph = torch.where(
+            a_miss, torch.where(a_hunt, A_ANCH, -1),
+            torch.where(a_low, torch.where(a_re, A_ANCH, -1),
+                        torch.where(a_ext_c, A_EXT, A_HEAD)))
+        a_ln2 = torch.where(a_miss, ln - 3, a_ln)
+        a_am2 = torch.where(a_miss, am - 1, am)
+        a_nm2 = torch.where(a_miss | a_low, 0, a_nm)
+        a_cp2 = torch.where(a_miss, curpos, pos)
+        a_al2 = torch.where(a_miss, anchlen, seglen)
+
+        er_ok, er_ln, er_am = reset_from(ln, am)      # reject, exhausted
+        es_ok, es_ln, es_am = reset_from(e_ln, am)    # accept, nm <= 0
+        e_ph = torch.where(
+            e_rej, torch.where(e_more, A_EXT, torch.where(er_ok, A_ANCH, -1)),
+            torch.where(e_ext_c, A_EXT, torch.where(
+                e_nm > 0, A_HEAD, torch.where(es_ok, A_ANCH, -1))))
+        e_reset = (e_rej & ~e_more) | (~e_rej & ~e_ext_c & (e_nm <= 0))
+        e_ln2 = torch.where(
+            e_rej, torch.where(e_more, ln, er_ln),
+            torch.where(e_ext_c | (e_nm > 0), e_ln, es_ln))
+        e_am2 = torch.where(e_rej & ~e_more, er_am,
+                            torch.where(e_reset & ~e_rej, es_am, am))
+        e_nm2 = torch.where(e_rej, w(e_more, nm), w(~e_reset, e_nm))
+        e_cp2 = torch.where(e_rej, curpos, wbest)
+        e_g2 = torch.where(e_rej & e_more, g + 1, 1)
+
+        # HEAD: ln == 0 short-circuits to a known result
+        h_ph = torch.where(ln > 0, A_DONE,
+                           torch.where(curpos != 0, A_DONE, -1))
+        h_mode = torch.where(ln > 0, 1, torch.where(curpos != 0, 2, 0))
+
+        ph2 = torch.where(is_anch, a_ph, torch.where(
+            is_ext, e_ph, torch.where(is_head, h_ph, ph)))
+        ln2 = torch.where(is_anch, a_ln2, torch.where(is_ext, e_ln2, ln))
+        am2 = torch.where(is_anch, a_am2, torch.where(is_ext, e_am2, am))
+        nm2 = torch.where(is_anch, a_nm2, torch.where(is_ext, e_nm2, nm))
+        cp2 = torch.where(is_anch, a_cp2, torch.where(is_ext, e_cp2,
+                                                      curpos))
+        al2 = torch.where(is_anch, a_al2, anchlen)
+        g2 = torch.where(is_anch, torch.where(a_ph == A_EXT, 1, g),
+                         torch.where(is_ext, e_g2, g))
+        mode2 = torch.where(is_head, h_mode, mode)
+        lp2 = torch.where(is_ext & e_reset, 0, lp)
+        ovf2 = ovf & ~(is_ext & e_reset)
+
+        # a failed strand: forward -> start over on the reverse row (when
+        # the entry condition holds), reverse -> done
+        fail = ph2 == -1
+        to_rev = fail & (strand == 0)
+        ph2 = torch.where(fail, torch.where(to_rev & can, A_ANCH, A_DONE),
+                          ph2)
+        iters = iters + (ph != A_DONE).to(torch.int32)
+        ph = ph2.to(torch.int32)
+        strand = torch.where(to_rev, 1, strand).to(torch.int32)
+        ln = torch.where(to_rev, olen, ln2).to(torch.int32)
+        am = torch.where(to_rev, am0, am2).to(torch.int32)
+        nm = w(~to_rev, nm2).to(torch.int32)
+        curpos = torch.where(to_rev, -1, cp2).to(torch.int32)
+        anchlen = w(~to_rev, al2).to(torch.int32)
+        g = w(~to_rev, g2).to(torch.int32)
+        lp = w(~to_rev, lp2).to(torch.int32)
+        ovf = ovf2 & ~to_rev
+        mode = w(~(fail & ~to_rev), mode2).to(torch.int32)
+        it += 1
+    return dict(mode=mode, curpos=curpos, strand=strand, lp=lp,
+                ovf=ovf.to(torch.int32),
+                capped=(ph != A_DONE).to(torch.int32), iters=iters, **log)
+
+
+def _align_kernel(fmi: FMIndex, bank, lens, live0, glen, seed_rows, *,
+                  anchor_len, resolve, cap, seed_k) -> torch.Tensor:
+    """Launch ``csrc/align_automaton.cu`` (K10): one thread a read.
+    Returns the packed output without synchronising."""
+    global ALIGN_LAUNCHES
+    search._check_index(fmi)
+    Bp = lens.shape[0]
+    dev = fmi.device
+    if (bank.device != dev or bank.dtype != torch.uint8 or bank.dim() != 2
+            or bank.shape[0] != 2 * Bp or bank.shape[1] == 0
+            or not bank.is_contiguous()):
+        raise ValueError(f"bank must be a contiguous (2 Bp, Lb) uint8 tensor "
+                         f"on {dev}, Bp = {Bp}")
+    if (lens.device != dev or lens.dtype != torch.int32
+            or not lens.is_contiguous()):
+        raise ValueError(f"lens must be a contiguous (Bp,) int32 tensor on "
+                         f"{dev}")
+    if (live0.device != dev or live0.dtype != torch.bool
+            or live0.shape != (Bp,) or not live0.is_contiguous()):
+        raise ValueError(f"live0 must be a contiguous ({Bp},) bool tensor on "
+                         f"{dev}")
+    isa = search._isa_args(fmi)
+    table = (None if seed_rows is None
+             else search.SeedTable(rows=seed_rows, k=seed_k))
+    if table is not None and not 1 <= seed_k <= 15:
+        raise ValueError(f"seed_k {seed_k} outside 1..15")
+    F = align_flag_offset(Bp)
+    out = torch.empty(F + 4, dtype=torch.int32, device=dev)
+    out[F:] = 0
+    if Bp:
+        lib = _kernels.library()
+        err = lib.align_automaton_launch(
+            bank.data_ptr(), Bp, bank.shape[1], lens.data_ptr(),
+            live0.data_ptr(), int(glen), anchor_len, int(resolve), cap,
+            *search._seed_args(fmi, table), *search._index_args(fmi),
+            *search._samples_args(fmi), *isa, out.data_ptr(),
+            search._stream(dev))
+        if err != 0:
+            raise RuntimeError(f"align_automaton kernel launch failed: CUDA "
+                               f"error {err}")
+        ALIGN_LAUNCHES += 1
+    return out
+
+
+def align_automaton_packed(fmi: FMIndex, bank, lens, live0, glen: int,
+                           seed_rows=None, *, anchor_len: int, resolve: bool,
+                           cap_steps: int = 0, seed_k: int = 0,
+                           plain: bool = False) -> torch.Tensor:
+    """The aligner automaton over ``Bp`` reads as one flat int32 tensor:
+    the seven columns of :data:`ALIGN_COLS`, then the five (Bp, LOGN) log
+    columns (:func:`align_unpack` names them), then at
+    :func:`align_flag_offset` the walk's overrun flag (its count of reads,
+    a pad word, and a 64-bit key naming the first read to overrun, whose
+    ``curpos`` then holds the row it walked from).  On the card this is one
+    launch of K10 over the uint8 ``bank`` and does not synchronise: the
+    caller reads the flag with :func:`align_automaton_raise`.  On the CPU,
+    or anywhere with ``plain``, it runs :func:`align_automaton_plain`,
+    which raises by itself.  Needs ``fmi.isa_samples``."""
+    Bp = lens.shape[0]
+    cap = cap_steps if cap_steps else align_default_cap(bank.shape[1])
+    if plain or not search._on_card(fmi):
+        parts = align_automaton_plain(
+            fmi, bank, lens, live0, glen, seed_rows, anchor_len=anchor_len,
+            resolve=resolve, cap_steps=cap, seed_k=seed_k)
+        out = torch.zeros(align_flag_offset(Bp) + 4, dtype=torch.int32,
+                          device=bank.device)
+        n = (len(ALIGN_COLS) + len(LOG_COLS) * LOGN) * Bp
+        out[:n] = torch.cat([parts[c].reshape(-1)
+                             for c in ALIGN_COLS + LOG_COLS])
+        return out
+    return _align_kernel(fmi, bank, lens, live0, glen, seed_rows,
+                         anchor_len=anchor_len, resolve=resolve, cap=cap,
+                         seed_k=seed_k)
+
+
+def align_automaton_raise(fmi: FMIndex, out, flag=None) -> None:
+    """Raise what the flag of a :func:`align_automaton_packed` output says:
+    a walk from a row past the suffix array, named as the plain version
+    names it (the first read to overrun, at its earliest iteration).
+    ``out`` is the output, on any device, or a numpy array; ``flag`` its
+    last four words where the caller has them on the host already (else
+    they are read from ``out``, which synchronises).  Only an overrun reads
+    the output's ``curpos`` column."""
+    if flag is None:
+        flag = out[-4:]
+    n_over, _, lane_key, _ = (int(x) for x in flag[-4:].tolist())
+    if n_over:
+        lane = align_lanes(out) - (lane_key & 0xFFFFFFFF)
+        row = int(align_unpack(out)["curpos"][lane])
+        raise search._overrun(row, fmi.length + 1, fmi.length)

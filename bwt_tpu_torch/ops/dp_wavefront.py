@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from bwt_tpu_torch.ops import _kernels
+from bwt_tpu_torch.ops import automaton as au
 from bwt_tpu_torch.ops.align import _backtrack, default_scoring
 from bwt_tpu_torch.utils.cigar import Cigar
 
@@ -390,3 +391,161 @@ def dp_stitch_plain(bank, genome, row, roff, rlen, rrev, gstart, glen, grev,
         i = i - (on & (op != 2)).to(torch.int32)
         j = j - (on & (op != 1)).to(torch.int32)
     return pack(maxloc, i, j, *_rle_device(ops)), ops
+
+
+# --------------------------------------------------------------------------
+# The stitch from the aligner automaton's log (K11a)
+# --------------------------------------------------------------------------
+#
+# Phase B of the aligner's device engine keeps the automaton's log on the
+# device: each DP shape bucket's jobs, named by (lane, slot), gather their
+# fields from the log, run the stitch, build their run blocks and scatter
+# them into chunk-wide accumulators that the compose (``ops/compose.py``)
+# reads.  The counterpart of ``bwt_tpu.models.aligner._dp_scatter_bucket``.
+
+# kernel launches made by dp_log_stitch (a plain counter)
+LOG_STITCH_LAUNCHES = 0
+
+# a job's block: its kept runs and the two border residuals
+BLOCK_W = RLE_R + 2
+
+
+def log_acc(Bp: int, device) -> torch.Tensor:
+    """Zeroed accumulators of the stitches from one chunk's log, as one flat
+    int32 tensor (:func:`acc_unpack` names its parts)."""
+    return torch.zeros((au.LOGN * (BLOCK_W + 1) + 2) * Bp, dtype=torch.int32,
+                       device=device)
+
+
+def acc_unpack(acc):
+    """The views of a :func:`log_acc` tensor: ``runs_oc`` (Bp, LOGN,
+    BLOCK_W), each entry (op + 2) << 24 | count; ``bl3`` (Bp, LOGN), a
+    slot's block length; ``head_end`` (Bp,), the head stitch's endpoint
+    minus 1; ``over`` (Bp,), 1 where a job had more runs than RLE_R."""
+    Bp = acc.shape[0] // (au.LOGN * (BLOCK_W + 1) + 2)
+    n, m = au.LOGN * BLOCK_W * Bp, au.LOGN * Bp
+    return (acc[:n].reshape(Bp, au.LOGN, BLOCK_W),
+            acc[n:n + m].reshape(Bp, au.LOGN),
+            acc[n + m:n + m + Bp], acc[n + m + Bp:n + m + 2 * Bp])
+
+
+def dp_blocks(maxloc, i_res, j_res, nrun, vals, counts, flip):
+    """Each job's run block as ``bwt_tpu.models.batch_exec._dp_blocks_core``
+    builds it: the kept runs in walk order, the I / D border residuals
+    appended (smw.c:99-104), reversed where ``flip`` (the Cigar flip of an
+    NW or head stitch, stack.c:51-59).  Returns (bo, bc) (J, BLOCK_W) int32,
+    the ops (-1 padding) and counts, bl (J,) the block's length and over
+    (J,) bool, more runs than RLE_R (the read is re-composed on the host)."""
+    J = nrun.shape[0]
+    dev = nrun.device
+    t = torch.arange(BLOCK_W, dtype=torch.int32, device=dev)[None, :]
+    nr = nrun.clamp(max=RLE_R)
+    over = nrun > RLE_R
+    bo = torch.where(t < nr[:, None], torch.cat(
+        [vals, torch.full((J, 2), -1, dtype=torch.int32, device=dev)], 1), -1)
+    bc = torch.where(t < nr[:, None], torch.cat(
+        [counts, torch.zeros((J, 2), dtype=torch.int32, device=dev)], 1), 0)
+    has_i = i_res > 0
+    mi = (t == nr[:, None]) & has_i[:, None]
+    bo = torch.where(mi, 1, bo)
+    bc = torch.where(mi, i_res[:, None], bc)
+    cd = nr + has_i.to(torch.int32)
+    has_j = j_res > 0
+    mj = (t == cd[:, None]) & has_j[:, None]
+    bo = torch.where(mj, 2, bo)
+    bc = torch.where(mj, j_res[:, None], bc)
+    bl = cd + has_j.to(torch.int32)
+    idx = torch.where(flip[:, None] & (t < bl[:, None]),
+                      (bl[:, None] - 1 - t).clamp(min=0), t)
+    return (bo.gather(1, idx.long()), bc.gather(1, idx.long()), bl, over)
+
+
+def _log_jobs(log, jk, jt):
+    """The stitch fields of the jobs at (lane jk, slot jt) of a packed K10
+    output, as the automaton recorded them."""
+    v = au.align_unpack(log)
+    jkl, jtl = jk.long(), jt.long()
+    kind = v["kinds"][jkl, jtl]
+    is_head = (kind == au.K_HEAD).to(torch.int32)
+    is_sw = kind == au.K_SW
+    return ((2 * jk + v["strand"][jkl]).to(torch.int32), v["roffs"][jkl, jtl],
+            v["rlens"][jkl, jtl], is_head, v["gstarts"][jkl, jtl],
+            v["glens"][jkl, jtl], is_head, (~is_sw).to(torch.int32)), is_sw
+
+
+def dp_log_stitch_plain(log, bank, genome, jk, jt, acc, *, L1: int, L2: int,
+                        scoring=None) -> None:
+    """The plain PyTorch version of K11a, on any device: the jobs' fields
+    gathered from the log, :func:`dp_stitch_plain`, :func:`dp_blocks`, and
+    the scatter into ``acc`` (in place: the accumulators of a chunk are
+    updated bucket after bucket)."""
+    fields, is_sw = _log_jobs(log, jk, jt)
+    P, _ = dp_stitch_plain(bank, genome, *fields, L1=L1, L2=L2,
+                           scoring=scoring)
+    maxloc, i_res, j_res, nrun, vals, counts = unpack(P)
+    bo, bc, bl, ov = dp_blocks(maxloc, i_res, j_res, nrun, vals, counts,
+                               ~is_sw)
+    runs_oc, bl3, head_end, over = acc_unpack(acc)
+    jkl, jtl = jk.long(), jt.long()
+    runs_oc[jkl, jtl] = ((bo + 2) << 24) | bc
+    bl3[jkl, jtl] = bl
+    head_end.index_add_(0, jkl, torch.where(fields[3] == 1, maxloc - 1, 0))
+    over.scatter_reduce_(0, jkl, ov.to(torch.int32), "amax")
+
+
+def dp_log_stitch(log, bank, genome, jk, jt, acc, *, L1: int, L2: int,
+                  scoring=None, plain: bool = False) -> None:
+    """One DP shape bucket of phase B: the jobs at (lane ``jk``, slot
+    ``jt``) of the packed automaton output ``log``, each job's read slice
+    from ``bank`` ((2 Bp, Lb) int32) and genome slice from ``genome`` ((G,)
+    int32), padded to (L1, L2); their run blocks scatter into ``acc``
+    (:func:`log_acc`) in place.  On the card one launch of the stitch
+    kernel's log form (``csrc/dp_stitch.cu``), which writes no op row; on
+    the CPU, or anywhere with ``plain``, :func:`dp_log_stitch_plain`."""
+    global LOG_STITCH_LAUNCHES
+    scoring = tuple(int(s) for s in (scoring or default_scoring()))
+    L1, L2 = int(L1), int(L2)
+    dev = bank.device
+    if plain or dev.type == "cpu":
+        return dp_log_stitch_plain(log, bank, genome, jk, jt, acc, L1=L1,
+                                   L2=L2, scoring=scoring)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    Bp = au.align_lanes(log)
+    for name, t in (("log", log), ("bank", bank), ("genome", genome),
+                    ("jk", jk), ("jt", jt), ("acc", acc)):
+        if (t.device != dev or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{dev}")
+    if bank.dim() != 2 or bank.shape[0] != 2 * Bp or genome.dim() != 1:
+        raise ValueError(f"bank must be (2 Bp, Lb) for Bp = {Bp}, genome "
+                         f"(G,)")
+    if acc.shape != ((au.LOGN * (BLOCK_W + 1) + 2) * Bp,):
+        raise ValueError(f"acc must be log_acc({Bp})")
+    if jk.shape != jt.shape or jk.dim() != 1:
+        raise ValueError("jk and jt must have one shape (J,)")
+    if L1 < 0 or L2 < 0:
+        raise ValueError(f"negative DP shape ({L1}, {L2})")
+    J = jk.shape[0]
+    if J == 0:
+        return None
+    lib = _kernels.library()
+    job_bytes = ctypes.c_longlong()
+    lib.dp_stitch_plan(L1, L2, _TALL_ROWS, ctypes.byref(job_bytes))
+    scratch = None
+    if job_bytes.value:
+        scratch = torch.empty(J * job_bytes.value, dtype=torch.uint8,
+                              device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dp_log_stitch_launch(
+            log.data_ptr(), Bp, bank.data_ptr(), bank.shape[1],
+            genome.data_ptr(), genome.shape[0], jk.data_ptr(), jt.data_ptr(),
+            J, L1, L2, *scoring, RLE_R, _TALL_ROWS, acc.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"dp_log_stitch kernel launch failed: CUDA error "
+                           f"{err}")
+    LOG_STITCH_LAUNCHES += 1
+    return None

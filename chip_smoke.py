@@ -23,13 +23,21 @@ the card's name and power limit:
      one launch of the fused locate kernel a call: every position checked
      against the genome; count_matches on the same patterns through the
      standalone backward-search kernel (K3);
-  5. single_align (align_reads) on 4096 reads of 80 bp with one
-     substitution each: one launch of the service kernel (K7) a service
-     call and of the stitch kernel a DP call, no launch of the standalone
-     fill, K3, K4 or K6, every aligned CIGAR consumes its read, at least
-     half the reads land at their true start, a 256-read subset gives the
-     same results through the plain versions (dp_impl, svc_impl), and the
-     executor's own clocks (t_svc, t_dp) are printed; then nw_fast_batch, the batched
+  5. single_align (align_reads) at bench.py's width: 2^16 reads of 80 bp
+     with one substitution each, two chunks of 2^15, and 4,096 reads with
+     one 1-3-base insertion or deletion each, through the default engine,
+     the device engine: one launch of the aligner automaton (K10) and one
+     of the compose (K11b) a chunk, one of the log stitch (K11a) a
+     non-empty DP bucket, no K7 or executor stitch outside the escapes
+     (redo and fallback reads, whose counts it prints), no fill, K3, K4,
+     K6 or K9; every read equal to the host engine on the same reads (one
+     K7 launch a service call, one stitch launch a DP call); every aligned
+     CIGAR of a substitution read consumes its read (an indel read's may
+     miss it by its gap's width, the reference's semantics: the offsets
+     are printed); at least half the substitution reads at their true
+     start; a 512-read subset equal through the plain versions (svc_impl,
+     dp_impl) and on a CPU copy of the index; 4,096 reads at a forced cap
+     of 4 iterations equal.  Then nw_fast_batch, the batched
      free-tail aligner over the standalone fill (K1), on 4096 pairs of an
      80-bp read and its 100-bp window, padded to 96 x 128: one fill launch,
      every CIGAR consumes its read, all pairs equal to the same call on
@@ -49,7 +57,12 @@ the card's name and power limit:
      executor's kernels: K7 on fuzzed rounds of 2^13 lanes mixing all eight
      opcodes (with and without N resolution, the window scan and a k = 12
      seed table) and on the largest rounds recorded from phase 5, equal in
-     all 13 columns and the flag; K6 on 2^16 windows; K5 at k = 12;
+     all 13 columns and the flag; K6 on 2^16 windows; K5 at k = 12; then
+     the aligner's: K10 on one chunk of phase 5's substitution reads and
+     on its indel reads (every column, the log and the flag, with its
+     registers and its longest read's iterations), K11a on every bucket of
+     the substitution chunk's log (the accumulators) and K11b on its
+     lanes;
   8. search_reads on 2^20 unmutated 50-bp reads cut from the genome (a
      uint8 code array): two anchor_scan launches a chunk and no K3 or K4,
      every forward read anchors at its origin, an 8,192-read subset gives
@@ -69,18 +82,21 @@ the card's name and power limit:
      path), equal; and 4,096 isa_range requests through the executor (K6's
      path), every row walked back to its position;
   9. one torch.profiler window over each exact-search path and over
-     rna_seq's device engine, last because the profiler slows every later
-     launch of its process: locate plain and seeded (device busy time,
-     device ops), search_reads, whose wall it splits into host encode,
-     upload, kernels and download, and rna_seq (K9, uploads, downloads).
+     the device engines of rna_seq and single_align, last because the
+     profiler slows every later launch of its process: locate plain and
+     seeded (device busy time, device ops), search_reads, whose wall it
+     splits into host encode, upload, kernels and download, rna_seq (K9,
+     uploads, downloads) and single_align's 2^16 reads (K10, K11a, K11b,
+     uploads, downloads, the rest).
 Each path of phases 4, 5, 8 and 10 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel's ``launches`` are
 those of the paths that run it and never those of a comparison (the
 standalone fill's are nw_fast_batch's: single_align fills inside the
-stitch kernel; K4's are the unc_sa_range scan's: the service kernel walks
-inside its own launch; K7's in rna_seq are the host engine's, K9's the
-device engine's).  Then one JSON line with the ten kernels, the nvidia-smi
-line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+stitch kernels; K4's are the unc_sa_range scan's: the service kernel walks
+inside its own launch; K7's and the executor stitch's are the host
+engines' and the escapes', K9's and K10-K11b's the device engines').
+Then one JSON line with the thirteen kernels, the nvidia-smi line, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises and exits non-zero; so does a machine without CUDA.
 
 A kernel's bound is the least time the card could take for the same
@@ -110,12 +126,16 @@ take; each counted from the round's own results.  K9's are the search, walk
 and window steps of every round its chunk's reads needed, counted from the
 plain version's rounds, and its bytes the bank, the lengths and the three
 output columns once, a sector a seed row, window or walk sample, and the
-index sectors the steps touch.  The resolution of an N, forming the
+index sectors the steps touch; K10's the same, its output the seven
+columns and the log.  K11a's are the fused stitch's, its bytes a job's ids
+and gathered fields, its slices and its block; K11b's its bytes alone: a
+read's scalars, its kinds, glens and block-length rows, the stream entries
+it reads and its 48-byte row.  The resolution of an N, forming the
 lane masks, addresses and branches are left out, so the bound is, if
 anything, low.  No PyTorch call computes a backward search, an SA walk,
 an anchor hunt, an inverse-SA chain, an affine-gap DP fill or its
-backtrack, or runs a phase machine over them, so ``library_ms`` is null for
-every kernel.
+backtrack, runs a phase machine over them or merges a CIGAR's runs, so
+``library_ms`` is null for every kernel.
 """
 
 from __future__ import annotations
@@ -650,108 +670,226 @@ def _cigar_read_len(cig) -> int:
     return sum(c for op, c in cig.ops if op in "MI")
 
 
-def phase_align(fmi, codes_np, rng, nreads, tag, subset=256):
-    """Phase 5: single_align through align_reads."""
+def indel_reads(rng, codes, n, length=READ_LEN):
+    """``n`` reads cut at uniform starts, each with one insertion or
+    deletion of 1 to 3 bases between its 10th and 70th base."""
+    import numpy as np
+
+    starts = rng.integers(0, len(codes) - length - 3, size=n)
+    reads = np.empty((n, length), np.uint8)
+    for k, s in enumerate(starts.tolist()):
+        r = codes[s:s + length + 3]
+        at, d = int(rng.integers(10, 70)), int(rng.integers(1, 4))
+        if k % 2:
+            r = np.concatenate([r[:at], r[at + d:]])
+        else:
+            r = np.concatenate([r[:at], rng.integers(0, 4, d).astype(np.uint8),
+                                r[at:]])
+        reads[k] = r[:length]
+    return starts, reads
+
+
+def _align_counts(zero=False):
+    """The launch counts of every kernel single_align can reach, set to 0
+    with ``zero``."""
+    from bwt_tpu_torch.ops import automaton, compose, dp_wavefront, search
+    from bwt_tpu_torch.ops import service
+
+    where = ((automaton, "ALIGN_LAUNCHES"), (dp_wavefront, "LOG_STITCH_LAUNCHES"),
+             (compose, "COMPOSE_LAUNCHES"), (service, "SERVICE_LAUNCHES"),
+             (dp_wavefront, "STITCH_LAUNCHES"), (dp_wavefront, "LAUNCHES"),
+             (search, "BS_LAUNCHES"), (search, "UNC_LAUNCHES"),
+             (search, "ISA_LAUNCHES"), (automaton, "AUTOMATON_LAUNCHES"))
+    if zero:
+        for mod, name in where:
+            setattr(mod, name, 0)
+    return dict(zip(("K10", "K11a", "K11b", "K7", "stitch", "fill", "K3", "K4",
+                     "K6", "K9"), (getattr(m, n) for m, n in where)))
+
+
+def _norm(results):
+    return [(p, c.render() if c else None, s) for p, c, s in results]
+
+
+def phase_align(fmi, codes_np, rng, nreads, tag, nindel=4096, subset=512,
+                forced=4096):
+    """Phase 5: single_align through align_reads on bench.py's reads (80 bp,
+    one substitution each) and on reads with one indel each: the default
+    engine, the device automaton and its phase B, against the host engine
+    on the same reads; subsets through the plain versions, on a CPU copy of
+    the index and at a forced cap."""
     import numpy as np
 
     from bwt_tpu_torch.models import aligner
     from bwt_tpu_torch.models.batch_exec import QueryService
-    from bwt_tpu_torch.ops import dp_wavefront, search, service
+    from bwt_tpu_torch.ops import service
 
     starts, reads = mutated_reads(rng, codes_np, nreads)
+    istarts, ireads = indel_reads(rng, codes_np, nindel)
     svc = QueryService(fmi, codes_np)
     aligner.align_reads(fmi, codes_np, reads[:64], service=svc)  # warm-up
-    dp_wavefront.LAUNCHES = dp_wavefront.STITCH_LAUNCHES = 0
-    search.UNC_LAUNCHES = search.BS_LAUNCHES = search.ISA_LAUNCHES = 0
-    service.SERVICE_LAUNCHES = 0
-    # keep every round's arguments (references to tensors that exist
-    # anyway) for phase 7, which times the kernel on the largest ones
-    rounds, launch = [], service.service_round_packed
+
+    def drive(what, batch, **kw):
+        _align_counts(zero=True)
+        t0 = time.perf_counter()
+        out = aligner.align_reads(fmi, codes_np, batch, service=svc,
+                                  with_strand=True, **kw)
+        dt = time.perf_counter() - t0
+        return out, dt, _align_counts(), dict(svc.last_stats)
+
+    runs = {}
+    for what, batch in (("subst", reads), ("indel", ireads)):
+        res, dt, counts, st = drive(what, batch)
+        chunks = -(-len(batch) // svc.config.search_batch)
+        require(counts["K10"] == st["align_launches"] == st["chunks"]
+                == chunks, f"{what}: {counts['K10']} K10 launches for "
+                           f"{chunks} chunks ({st})")
+        require(counts["K11b"] == st["compose_launches"] == chunks,
+                f"{what}: {counts['K11b']} K11b launches for {chunks} "
+                f"chunks")
+        require(counts["K11a"] == st["log_stitch_launches"] == st["buckets"]
+                > 0, f"{what}: {counts['K11a']} K11a launches for "
+                     f"{st['buckets']} non-empty buckets")
+        # the host engine runs only the escapes: K7 and the executor's
+        # stitch for the fallback, the stitch for the redo
+        require(counts["K7"] == 0 or st["fallback"] > 0,
+                f"{what}: {counts['K7']} K7 launches without a fallback")
+        require(counts["stitch"] == 0 or st["fallback"] + st["redo"] > 0,
+                f"{what}: {counts['stitch']} executor stitches without an "
+                f"escape")
+        require(counts["fill"] + counts["K3"] + counts["K4"] + counts["K6"]
+                + counts["K9"] == 0, f"{what}: another kernel ran {counts}")
+        runs[what] = dict(res=res, s=dt, counts=counts, stats=st, n=len(batch))
+
+    # the host engine on the same reads; its service rounds are kept for
+    # phase 7, which times K7 on the largest ones
+    recorded, launch = [], service.service_round_packed
 
     def recording(fmi_, bank, *fields, **kw):
-        rounds.append((bank, fields, kw))
+        recorded.append((bank, fields, kw))
         return launch(fmi_, bank, *fields, **kw)
 
-    service.service_round_packed = recording
+    host = {}
+    for what, batch in (("subst", reads), ("indel", ireads)):
+        service.service_round_packed = recording
+        try:
+            res, dt, counts, st = drive(what, batch, engine="host")
+        finally:
+            service.service_round_packed = launch
+        require(counts["K7"] == st["svc_calls"] == st["svc_launches"] > 0,
+                f"host engine: {counts['K7']} K7 launches for "
+                f"{st['svc_calls']} service calls")
+        require(counts["stitch"] == st["dp_calls"] > 0 and counts["fill"] == 0,
+                f"host engine: {counts['stitch']} stitch launches for "
+                f"{st['dp_calls']} DP calls, {counts['fill']} fills")
+        bad = [k for k, (a, b) in enumerate(zip(_norm(res),
+                                                _norm(runs[what]["res"])))
+               if a != b]
+        require(not bad, f"{what}: the device engine and the host engine "
+                         f"differ on {len(bad)} reads, first {bad[:5]}")
+        host[what] = dict(s=dt, counts=counts, stats=st)
+
+    # a CIGAR of a substitution read consumes the read; one of an indel read
+    # may miss it by the gap fill's width: an I run after a gap counts the
+    # genome's overlap, not the read characters skipped (the reference's,
+    # and bwt_tpu's, semantics), so there the offsets are counted
+    for what, rs, st0 in (("subst", runs["subst"]["res"], starts),
+                          ("indel", runs["indel"]["res"], istarts)):
+        off = {}
+        for k, (p, cig, _) in enumerate(rs):
+            if p:
+                d = _cigar_read_len(cig) - READ_LEN
+                off[d] = off.get(d, 0) + 1
+                require(d == 0 if what == "subst" else abs(d) <= 3,
+                        f"{what} read {k}: CIGAR {cig.render()} consumes "
+                        f"{READ_LEN + d} of its {READ_LEN} bases")
+        runs[what]["consumed_off"] = dict(sorted(off.items()))
+        at = np.array([p == s + 1 and not r for (p, _, r), s in
+                       zip(rs, st0.tolist())])
+        runs[what]["at_true"] = float(at.mean())
+        runs[what]["aligned"] = sum(1 for p, _, _ in rs if p)
+    require(runs["subst"]["at_true"] >= 0.5,
+            f"only {runs['subst']['at_true']:.3f} of reads at their true start")
+
+    # subsets: through the plain versions on the card (svc_impl, dp_impl),
+    # on a CPU copy of the index, and at a forced cap of 4 iterations
+    half = subset // 2
+    sub = list(reads[:half]) + list(ireads[:half])
+    want = _norm(runs["subst"]["res"][:half] + runs["indel"]["res"][:half])
+    svc.svc_impl = svc.dp_impl = "plain"
+    t0 = time.perf_counter()
+    plain = aligner.align_reads(fmi, codes_np, sub, service=svc,
+                                with_strand=True)
+    plain_s = time.perf_counter() - t0
+    require(svc.last_stats["align_launches"] == 0
+            and svc.last_stats["log_stitch_launches"] == 0
+            and svc.last_stats["compose_launches"] == 0,
+            "svc_impl = dp_impl = 'plain' launched K10, K11a or K11b")
+    svc.svc_impl = svc.dp_impl = "kernel"
+    t0 = time.perf_counter()
+    on_cpu = aligner.align_reads(fmi.to("cpu"), codes_np, sub,
+                                 with_strand=True)
+    cpu_s = time.perf_counter() - t0
+    require(_norm(plain) == want and _norm(on_cpu) == want,
+            f"single_align differs on the {subset}-read subset between the "
+            f"kernels, their plain versions on the card and the CPU")
+    aligner._TEST_CAP = 4
     try:
-        t0 = time.perf_counter()
-        res = aligner.align_reads(fmi, codes_np, reads, service=svc,
-                                  with_strand=True)
-        dt = time.perf_counter() - t0
+        capped = aligner.align_reads(fmi, codes_np, reads[:forced],
+                                     service=svc, with_strand=True)
     finally:
-        service.service_round_packed = launch
-    launches, fills = dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES
-    unc, bs = search.UNC_LAUNCHES, search.BS_LAUNCHES
-    svc_launches = service.SERVICE_LAUNCHES
-    stats = dict(svc.last_stats)
-    require(svc_launches == stats["svc_calls"] == stats["svc_launches"] > 0,
-            f"{svc_launches} service kernel launches for "
-            f"{stats['svc_calls']} service calls")
-    require((unc, bs, search.ISA_LAUNCHES) == (0, 0, 0),
-            f"single_align launched K4, K3, K6 {(unc, bs, search.ISA_LAUNCHES)} "
-            f"times outside the service kernel")
-    require(launches > 0, "the stitch kernel was not launched by "
-                          "single_align")
-    require(fills == 0, f"single_align launched the standalone fill {fills} "
-                        f"times: the stitch kernel fills")
-    require(launches == stats["dp_calls"],
-            f"{launches} stitch launches for {stats['dp_calls']} DP calls")
-    aligned = [(k, r) for k, r in enumerate(res) if r[0]]
-    for k, (_, cig, _) in aligned:
-        require(_cigar_read_len(cig) == READ_LEN,
-                f"read {k}: CIGAR {cig.render()} does not consume "
-                f"{READ_LEN} read bases")
-    at_true = sum(1 for k, r in aligned
-                  if r[0] == starts[k] + 1 and not r[2])
-    share = at_true / nreads
-    require(share >= 0.5, f"only {share:.3f} of reads at their true start")
-    sub = reads[:subset]
-    with_kernel = aligner.align_reads(fmi, codes_np, sub, service=svc,
-                                      with_strand=True)
-    svc.dp_impl = "plain"
-    with_plain = aligner.align_reads(fmi, codes_np, sub, service=svc,
-                                     with_strand=True)
-    svc.dp_impl, svc.svc_impl = "kernel", "plain"
-    with_plain_svc = aligner.align_reads(fmi, codes_np, sub, service=svc,
-                                         with_strand=True)
-    require(svc.last_stats["svc_launches"] == 0,
-            "svc_impl = 'plain' launched the service kernel")
-    svc.svc_impl = "kernel"
+        aligner._TEST_CAP = 0
+    ncapped = svc.last_stats["capped"]
+    require(ncapped > 0 and _norm(capped) == _norm(
+        runs["subst"]["res"][:forced]),
+        f"the forced cap ({ncapped} reads capped) changed a result")
 
-    def norm(rs):
-        return [(p, c.render() if c else None, s) for p, c, s in rs]
-
-    require(norm(with_kernel) == norm(with_plain),
-            "single_align differs between the stitch kernel and its plain "
-            "version")
-    require(norm(with_kernel) == norm(with_plain_svc),
-            "single_align differs between the service kernel and its plain "
-            "version")
-    require(norm(with_kernel) == norm(res[:subset]),
-            "single_align subset differs from the full run")
-    print(f"phase 5 single_align {nreads} x {READ_LEN} bp: "
-          f"{len(aligned)} aligned, {share:.4f} at true start, "
-          f"{nreads / dt:.1f} reads/s ({dt:.3f} s), dp_stitch launches "
-          f"{launches}, dp_wavefront (fill) launches {fills}, service kernel "
-          f"launches {svc_launches}, K3 / K4 / K6 launches 0; executor: "
-          f"{stats['rounds']} rounds, {stats['svc_calls']} "
-          f"service calls {stats['t_svc']:.4f} s "
-          f"({100 * stats['t_svc'] / dt:.2f} % of the wall), "
-          f"{stats['dp_calls']} DP "
-          f"calls {stats['t_dp']:.4f} s "
-          f"({100 * stats['t_dp'] / dt:.2f} % of the wall, "
-          f"{stats['t_dp_finish']:.4f} s of it the host's decode of the "
-          f"runs; jobs by padded "
-          f"shape {stats['dp_shapes']}), generators "
-          f"{stats['t_gen']:.4f} s; {subset}-read subset equal through "
-          f"the kernels and through dp_impl = 'plain' and svc_impl = 'plain' "
-          f"{tag}", flush=True)
-    by_size = sorted(rounds, key=lambda r: -r[1][0].shape[0])
+    for what in ("subst", "indel"):
+        r, h = runs[what], host[what]
+        st, c = r["stats"], r["counts"]
+        print(f"phase 5 single_align {r['n']} x {READ_LEN} bp, "
+              f"{'one substitution' if what == 'subst' else 'one 1-3-base indel'}"
+              f" each, engine 'auto' (the device engine): "
+              f"{r['n'] / r['s']:.1f} reads/s ({r['s']:.4f} s), "
+              f"{r['aligned']} aligned, {r['at_true']:.4f} at their true "
+              f"start, CIGARs by read bases consumed minus {READ_LEN} "
+              f"{r['consumed_off']}; launches K10 {c['K10']} ({st['chunks']} chunks), "
+              f"K11a {c['K11a']} ({st['buckets']} non-empty buckets), K11b "
+              f"{c['K11b']}; escapes: {st['redo']} reads re-composed on the "
+              f"host, {st['fallback']} re-run on the host engine "
+              f"({st['capped']} capped), which launched K7 {c['K7']} and the "
+              f"executor's stitch {c['stitch']} times; no fill, K3, K4, K6 "
+              f"or K9; the host's clocks: registering, upload and launch "
+              f"{st['t_a']:.4f} s, waiting for the bucket counts and the "
+              f"stitch and compose launches {st['t_b']:.4f} s, waiting for "
+              f"the rows and building the results {st['t_fetch']:.4f} s, "
+              f"the escapes {st['t_escapes']:.4f} s; equal on every read to "
+              f"the host engine, "
+              f"{r['n'] / h['s']:.1f} reads/s ({h['s']:.3f} s, "
+              f"{h['stats']['svc_calls']} K7 and {h['stats']['dp_calls']} "
+              f"stitch launches) {tag}", flush=True)
+    print(f"phase 5 single_align subsets: {subset} reads ({half} of each "
+          f"kind) equal through the plain versions on the card "
+          f"({plain_s:.3f} s) and on a CPU copy of the index ({cpu_s:.3f} "
+          f"s); at a forced cap of 4 iterations {ncapped} of {forced} reads "
+          f"capped and re-run on the host, results equal {tag}", flush=True)
+    by_size = sorted(recorded, key=lambda r: -r[1][0].shape[0])
     picked = [by_size[0]] + [r for r in by_size if r[2]["ext"]][:1]
-    return dict(n=nreads, s=dt, per_s=nreads / dt, at_true=share,
-                aligned=len(aligned), launches=launches, fill_launches=fills,
-                unc_launches=unc, bs_launches=bs, svc_launches=svc_launches,
-                stats=stats), picked
+    s, i = runs["subst"], runs["indel"]
+    out = dict(
+        n=nreads, s=s["s"], per_s=nreads / s["s"], at_true=s["at_true"],
+        aligned=s["aligned"], stats=s["stats"], counts=s["counts"],
+        indel=dict(n=nindel, s=i["s"], per_s=nindel / i["s"],
+                   at_true=i["at_true"], stats=i["stats"],
+                   counts=i["counts"], consumed_off=i["consumed_off"]),
+        host={k: dict(s=v["s"], counts=v["counts"], stats=v["stats"])
+              for k, v in host.items()},
+        plain_subset_s=plain_s, cpu_subset_s=cpu_s, forced_capped=ncapped,
+        launches={k: s["counts"][k] + i["counts"][k] for k in s["counts"]},
+        host_launches={k: host["subst"]["counts"][k]
+                       + host["indel"]["counts"][k]
+                       for k in s["counts"]})
+    return out, picked, (reads, ireads)
 
 
 def phase_nw_batch(codes_np, rng, npairs, tag, window=100, subset=16):
@@ -1337,6 +1475,195 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
     return rows
 
 
+def registers_of(fragment: str) -> list[int]:
+    """The registers of each compiled kernel whose name holds ``fragment``,
+    from phase 1's compiler report."""
+    from bwt_tpu_torch.ops import _kernels
+
+    found = re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'\n"
+                       r"(?:.*\n){0,3}?.*Used (\d+) registers",
+                       _kernels.LAST_REPORT)
+    return sorted(int(r) for name, r in found if fragment in name)
+
+
+def phase_align_kernels(fmi, svc, chunks, tag) -> list:
+    """Phase 7, the aligner's kernels: K10 on one chunk of phase 5's
+    substitution reads and one of its indel reads, K11a on every bucket of
+    the substitution chunk's log and K11b on its composed lanes, each
+    against its plain version on the card, bit-equal, and timed beside its
+    bound.  K10's bound counts what the chunk's reads needed, from the plain
+    version's rounds, as K9's does; K11a's the cells of each job's own
+    matrix and its walk (one operation a step), and its bytes the job's ids
+    and fields, its two slices and its block; K11b's its bytes: a read's
+    scalars, its log and block rows, the runs its stream reads, and its
+    output row."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.models import aligner
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import automaton as au
+    from bwt_tpu_torch.ops import compose as cmp
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+    from bwt_tpu_torch.ops import service as sv
+
+    dev = fmi.device
+    seed = svc.seed
+    rows, logs = [], {}
+    for what, reads in chunks:
+        chunk = QueryService(fmi, svc.genome_dev, svc.config)
+        chunk.add_reads_batch(reads, with_revcomp=True)
+        bank = chunk.bank8
+        Bp = bank.shape[0] // 2
+        lens_np = np.zeros(Bp, np.int32)
+        lens_np[:len(reads)] = [len(r) for r in reads]
+        args = (fmi, bank, torch.from_numpy(lens_np).to(dev),
+                torch.arange(Bp, device=dev) < len(reads), fmi.length,
+                seed.rows)
+        kw = dict(anchor_len=svc.config.anchor_len, resolve=chunk._has_n,
+                  seed_k=seed.k)
+        got = au.align_automaton_packed(*args, **kw)
+        want, plain_ms = _event_ms(
+            lambda: au.align_automaton_packed(*args, plain=True, **kw))
+        err = _max_abs_diff([got], [want])
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"K10 differs from its plain version on a chunk of "
+                f"{len(reads)} {what} reads: max |d| {err}")
+        au.align_automaton_raise(fmi, got)
+        v = au.align_unpack(got)
+        require(not bool(v["capped"].any()), "a read reached K10's cap")
+        totals = dict(search=0, walk=0, walks=0, window=0, windows=0,
+                      seeded=0, rounds=0)
+
+        def on_round(fields, cols):
+            live = fields[0] != sv.OP_NONE
+            w = _round_steps(fmi, bank, [f[live] for f in fields],
+                             cols[:, live], ext=True, walk=True,
+                             seed_k=seed.k)
+            for key in totals:
+                totals[key] += w.get(key, 1)
+
+        au.align_automaton_plain(*args, on_round=on_round, **kw)
+        lf_steps = totals["walk"] + totals["window"]
+        nbytes = (bank.numel() + 5 * Bp + 4 * got.numel()
+                  + 32 * (totals["seeded"] + totals["windows"])
+                  + _index_bytes(fmi, totals["search"], lf_steps,
+                                 totals["walks"]))
+        bound = bound_of(nbytes, SEARCH_STEP_OPS * totals["search"]
+                         + WALK_STEP_OPS * lf_steps)
+        ms = cuda_ms(lambda: au.align_automaton_packed(*args, **kw), 10,
+                     ahead=True)
+        iters = v["iters"][:len(reads)]
+        longest = int(iters.max())
+        hist = np.bincount(iters.cpu().numpy()).tolist()
+        regs = registers_of("align_automaton_kernel")
+        row = dict(kernel="align_automaton", case=f"a chunk of phase 5, {what}",
+                   shape=f"Bp={Bp} Lb={bank.shape[1]} uint8, k={seed.k} table",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   rounds=totals["rounds"], search_steps=totals["search"],
+                   walk_steps=totals["walk"], window_steps=totals["window"],
+                   longest_iters=longest, mean_iters=float(iters.float().mean()),
+                   iters_hist=hist, registers=regs, **bound)
+        rows.append(row)
+        logs[what] = (chunk, got)
+        print(f"phase 7 K10 align_automaton on a chunk of {len(reads)} "
+              f"{what} reads ({row['shape']}): bit-equal to its plain version "
+              f"on the card (tolerance 0, max |d| {err}; every column, the "
+              f"log and the flag), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms in {totals['rounds']} lockstep rounds, bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bytes']} bytes, {bound['ops']} operations: "
+              f"{totals['search']} search, {totals['walk']} walk and "
+              f"{totals['window']} window steps); registers {regs}, no stack "
+              f"frame; the longest read ran {longest} iterations, the mean "
+              f"{row['mean_iters']:.3f}, by count {hist} {tag}", flush=True)
+
+    # K11a on every bucket of the substitution chunk, then K11b
+    chunk, log = logs[chunks[0][0]]
+    v = au.align_unpack(log)
+    bank, genome = chunk.bank, chunk.genome_dev
+    Bp = au.align_lanes(log)
+    Lb = chunk.bank8.shape[1]
+    G = aligner._DP_GRAN
+    NL2 = -(-(Lb + 10) // G)
+    order, counts = aligner._job_bucket_sort(
+        v["mode"], v["lp"], v["ovf"], v["kinds"], v["rlens"], v["glens"],
+        NB=-(-Lb // G) * NL2, NL2=NL2)
+    counts = counts.cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    got, want, scratch = (dw.log_acc(Bp, dev) for _ in range(3))
+    ms = plain_ms = 0.0
+    jobs = cells = steps = nbytes = 0
+    shapes = []
+    for b in np.nonzero(counts)[0].tolist():
+        l1, l2 = divmod(b, NL2)
+        L1, L2 = G * (l1 + 1), G * (l2 + 1)
+        jk, jt = aligner._bucket_ids(order, int(offs[b]), int(counts[b]))
+        dw.dp_log_stitch(log, bank, genome, jk, jt, got, L1=L1, L2=L2)
+        _, t = _event_ms(lambda: dw.dp_log_stitch(
+            log, bank, genome, jk, jt, want, L1=L1, L2=L2, plain=True))
+        plain_ms += t
+        ms += cuda_ms(lambda: dw.dp_log_stitch(log, bank, genome, jk, jt,
+                                               scratch, L1=L1, L2=L2),
+                      20, ahead=True)
+        fields, _ = dw._log_jobs(log, jk, jt)
+        _, ops = dw.dp_stitch_plain(bank, genome, *fields, L1=L1, L2=L2)
+        i0 = fields[2].long().clamp(0, L1)
+        jmax = fields[5].long().clamp(max=L2)
+        J = jk.shape[0]
+        jobs += J
+        cells += int(((i0 + 1) * (jmax + 1).clamp(min=0)).sum())
+        steps += int((ops != 3).sum())
+        nbytes += 4 * (J * (2 + 6 + dw.BLOCK_W + 3) + int(i0.sum())
+                       + int(jmax.clamp(min=0).sum()))
+        shapes.append(f"{L1}x{L2}: {J}")
+    err = _max_abs_diff([got], [want])
+    require(torch.equal(got, want), f"K11a differs from its plain version on "
+                                    f"the buckets of a chunk: max |d| {err}")
+    bound = bound_of(nbytes, DP_CELL_OPS * cells + steps)
+    regs = registers_of("LogForm")
+    rows.append(dict(kernel="dp_log_stitch", case="the buckets of a chunk of "
+                     "phase 5, subst", shape="; ".join(shapes),
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, jobs=jobs,
+                     cells=cells, walk_steps=steps, registers=regs,
+                     buckets=len(shapes), **bound))
+    print(f"phase 7 K11a dp_log_stitch on the {len(shapes)} buckets of that "
+          f"chunk (jobs by padded shape {shapes}): the accumulators bit-equal "
+          f"to the plain version's (tolerance 0, max |d| {err}), kernels "
+          f"{ms:.4f} ms in all, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({bound['bytes']} bytes, {bound['ops']} operations: {cells} cells, "
+          f"{steps} walk steps); registers of the log form's kernels {regs} "
+          f"{tag}", flush=True)
+
+    comp = cmp.compose(log, got)
+    want_c, plain_c = _event_ms(lambda: cmp.compose_plain(log, got))
+    err = _max_abs_diff([comp], [want_c])
+    require(torch.equal(comp, want_c), f"K11b differs from its plain version "
+                                       f"on a chunk: max |d| {err}")
+    ms_c = cuda_ms(lambda: cmp.compose(log, got), 20, ahead=True)
+    bl3 = dw.acc_unpack(got)[1]
+    slot = torch.arange(au.LOGN, device=dev)[None, :]
+    vm = slot < v["lp"].clamp(max=au.LOGN)[:, None]
+    single = vm & ((v["kinds"] == au.K_M) | (v["kinds"] == au.K_I))
+    entries = int(torch.where(single, 1, torch.where(vm, bl3, 0)).sum(1)
+                  .clamp(max=cmp.F2).sum())
+    bound_c = bound_of(Bp * (6 * 4 + 3 * au.LOGN * 4 + 8 + 4 * cmp.OUT_W)
+                       + 4 * entries, 0)
+    regs = registers_of("compose_kernel")
+    rows.append(dict(kernel="compose", case="the lanes of a chunk of phase 5, "
+                     "subst", shape=f"Bp={Bp}, K={cmp.RUNS_K}",
+                     max_abs_err=err, ms=ms_c, plain_ms=plain_c,
+                     registers=regs, stream_entries=entries, **bound_c))
+    print(f"phase 7 K11b compose on the {Bp} lanes of that chunk: bit-equal "
+          f"to its plain version (tolerance 0, max |d| {err}), kernel "
+          f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound "
+          f"{bound_c['bound_ms']:.4f} ms by {bound_c['bound_by']} "
+          f"({bound_c['bytes']} bytes, {entries} stream entries read); "
+          f"registers {regs} {tag}", flush=True)
+    return rows
+
+
 def _automaton_case(fmi, svc, reads, tag) -> dict:
     """K9 on one chunk of phase 10's reads against its plain version on the
     card, bit-equal in its whole packed output (res, capped, iterations,
@@ -1685,12 +2012,14 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
                 launches=launches[0], chunks=chunks, paired=paired), reads
 
 
-def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag):
+def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
+                   codes_np, align_reads):
     """Phase 9: one torch.profiler window over each exact-search path and
-    over rna_seq's device engine, after every untraced measurement (the
-    profiler, once started, slows every later launch of the process).
-    Adds to ``report`` in place."""
-    from bwt_tpu_torch.models import exact, rnaseq
+    over the device engines of rna_seq and single_align, after every
+    untraced measurement (the profiler, once started, slows every later
+    launch of the process).  Adds to ``report`` in place."""
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
     from bwt_tpu_torch.ops import search
 
     pats, lens = kmers
@@ -1759,6 +2088,34 @@ def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag):
     report["rna_seq"].update(traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
                              device_ops=prof["ops"], split_ms=split)
 
+    # single_align's device engine: a K10 launch, the job bucketing, the
+    # K11a launches and a K11b launch a chunk, the uploads and the copies
+    svc = QueryService(fmi, codes_np)
+    aligner.align_reads(fmi, codes_np, align_reads[:64], service=svc)
+    prof = device_profile(
+        lambda: aligner.align_reads(fmi, codes_np, align_reads, service=svc))
+    split = dict(K10=0.0, K11a=0.0, K11b=0.0, upload=0.0, download=0.0,
+                 other=0.0)
+    for name, (_, ms) in prof["by_name"].items():
+        kind = ("K10" if "align_automaton_kernel" in name
+                else "K11a" if "LogForm" in name
+                else "K11b" if "compose_kernel" in name
+                else "upload" if "Memcpy HtoD" in name
+                else "download" if "Memcpy DtoH" in name else "other")
+        split[kind] += ms
+    wall_ms = prof["wall_s"] * 1e3
+    parts = ", ".join(f"{k} {v:.3f} ms ({100 * v / wall_ms:.2f} %)"
+                      for k, v in split.items())
+    names = ", ".join(f"{n} x {k[:48]}" for k, (n, _) in
+                      sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1]))
+    print(f"phase 9 profile of single_align {len(align_reads)} x "
+          f"{READ_LEN} bp (the device engine), {wall_ms:.3f} ms traced wall: "
+          f"{parts}; device busy {prof['busy_ms']:.3f} ms "
+          f"({100 * prof['busy_ms'] / wall_ms:.2f} %) in {prof['ops']} device "
+          f"ops ({names}); the rest is the host {tag}", flush=True)
+    report["align"].update(traced_s=prof["wall_s"], busy_ms=prof["busy_ms"],
+                           device_ops=prof["ops"], split_ms=split)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1807,19 +2164,27 @@ def main(argv=None) -> int:
     fmi, report["build"] = phase_build(codes, dev, tag)
     report["locate"], table, kmers = phase_locate(fmi, codes, rng, 1 << 20,
                                                   tag)
-    report["align"], recorded = phase_align(fmi, codes, rng, 4096, tag)
+    report["align"], recorded, (sub_reads, ind_reads) = phase_align(
+        fmi, codes, rng, 1 << 16, tag)
     report["nw_batch"] = phase_nw_batch(codes, rng, NW_PAIRS, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
     report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
     report["kernels"] += phase_service_kernels(fmi, codes, rng, table,
                                                recorded, tag)
     del recorded
+    from bwt_tpu_torch.models.batch_exec import QueryService
+
+    align_svc = QueryService(fmi, codes)
+    report["kernels"] += phase_align_kernels(
+        fmi, align_svc, [("subst", sub_reads[:align_svc.config.search_batch]),
+                         ("indel", ind_reads)], tag)
     report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
                                                        1 << 20, tag)
     rna_reads, rna = phase_rna_seq(fmi, codes, rng, 1 << 16, tag)
     report["rna_seq"] = rna
     report["kernels"].append(rna["k9"])
-    phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag)
+    phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
+                   codes, sub_reads)
     del fmi, table, kmers
     torch.cuda.empty_cache()
     if args.out:
@@ -1839,29 +2204,33 @@ def main(argv=None) -> int:
         return max(r["max_abs_err"] for r in pool_of(kernel))
 
     loc, align, sr = report["locate"], report["align"], report["search_reads"]
+    # single_align's launches: its default engine's run (K10, K11a, K11b,
+    # and its escapes') and its host engine's (K7, the executor's stitch)
+    al = {k: align["launches"][k] + align["host_launches"][k]
+          for k in align["launches"]}
     entries = [
         # single_align fills inside dp_stitch (fill launches 0 there): the
         # standalone fill's path is nw_fast_batch
         ("dp_wavefront", "bwt_tpu_torch/csrc/dp_wavefront.cu",
          "bwt_tpu/ops/pallas_align.py:44",
-         align["fill_launches"] + report["nw_batch"]["fill_launches"],
+         al["fill"] + report["nw_batch"]["fill_launches"],
          row_of("dp_wavefront", B=NW_PAIRS, L1=NW_SHAPE[0], L2=NW_SHAPE[1],
                 scoring="default"),
          f"B={NW_PAIRS} L1={NW_SHAPE[0]} L2={NW_SHAPE[1]}"),
         ("dp_stitch", "bwt_tpu_torch/csrc/dp_stitch.cu",
          "bwt_tpu/models/batch_exec.py:721 around "
-         "bwt_tpu/ops/pallas_align.py:44", align["launches"],
+         "bwt_tpu/ops/pallas_align.py:44", al["stitch"],
          row_of("dp_stitch", B=1024, L1=32, L2=32, scoring="default"),
          "B=1024 L1=32 L2=32"),
         ("backward_search", "bwt_tpu_torch/csrc/backward_search.cu",
          "tools/probe_pallas_lf.py:103",
-         loc["count_matches"]["bs_launches"] + align["bs_launches"],
+         loc["count_matches"]["bs_launches"] + al["K3"],
          row_of("backward_search", "C[c0], 30-mers"), None),
         # since the service kernel walks inside its own launch, K4's path
         # is the unc_sa_range request (rna_seq without isa_samples)
         ("unc_sa", "bwt_tpu_torch/csrc/unc_sa.cu",
          "bwt_tpu/ops/search.py:359",
-         align["unc_launches"] + rna["unc_launches"], row_of("unc_sa"), None),
+         al["K4"] + rna["unc_launches"], row_of("unc_sa"), None),
         ("anchor_scan", "bwt_tpu_torch/csrc/anchor_scan.cu",
          "bwt_tpu/models/exact.py:35", sr["launches"],
          row_of("anchor_scan", "a search_reads chunk, uint8, reversed, "
@@ -1880,12 +2249,21 @@ def main(argv=None) -> int:
         # K9 alone
         ("service", "bwt_tpu_torch/csrc/service.cu",
          "bwt_tpu/models/batch_exec.py:304",
-         align["svc_launches"] + rna["launches"] + rna["isa_svc_launches"],
+         al["K7"] + rna["launches"] + rna["isa_svc_launches"],
          row_of("service", "a round recorded from single_align (mms "
                            "lanes)"), None),
         ("rnaseq_automaton", "bwt_tpu_torch/csrc/rnaseq_automaton.cu",
          "bwt_tpu/models/rnaseq.py:265", rna["automaton_launches"],
          row_of("rnaseq_automaton"), None),
+        ("align_automaton", "bwt_tpu_torch/csrc/align_automaton.cu",
+         "bwt_tpu/models/aligner.py:504", al["K10"],
+         row_of("align_automaton", "a chunk of phase 5, subst"), None),
+        ("dp_log_stitch", "bwt_tpu_torch/csrc/dp_stitch.cu",
+         "bwt_tpu/models/aligner.py:1028", al["K11a"],
+         row_of("dp_log_stitch"), None),
+        ("compose", "bwt_tpu_torch/csrc/compose.cu",
+         "bwt_tpu/models/aligner.py:1084", al["K11b"], row_of("compose"),
+         None),
     ]
     for entry in entries:
         require(entry[3] > 0, f"no main path launched the {entry[0]} kernel")

@@ -69,7 +69,7 @@ def test_align_reads_matches_bwt_tpu_host(env, isa):
     assert any(s for p, _, s in want if p)  # some reverse-strand hits
     assert (taligner.format_ref_output(got)
             == jaligner.format_ref_output([(p, c) for p, c, _ in want]))
-    # "auto" is the host engine in the port
+    # "auto": the device engine with isa_samples, else the host engine
     auto = taligner.align_reads(tfmi, g, reads[:8], with_strand=True)
     assert _norm(auto) == _norm(got[:8])
 
@@ -85,10 +85,16 @@ def test_align_read_matches_bwt_tpu(env):
 
 
 def test_unported_engines_raise(env):
+    """mesh= and elastic_fallback are not ported and raise; the device
+    engine is, and runs."""
     g, jfmi = env
     tfmi = to_port(jfmi)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        taligner.align_reads(tfmi, g, ["ACGT"], engine="device")
+    reads = ["ACGT", g[100:180]]
+    got = taligner.align_reads(tfmi, g, reads, engine="device",
+                               with_strand=True)
+    assert _norm(got) == _norm(taligner.align_reads(
+        tfmi, g, reads, engine="host", with_strand=True))
+    assert got[1][0] == 101
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         taligner.align_reads(tfmi, g, ["ACGT"], mesh=object())
     cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,

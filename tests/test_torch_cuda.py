@@ -1,7 +1,8 @@
 """bwt_tpu_torch on an NVIDIA card: the CUDA kernels (DP fill, the fused
 DP stitch in all its forms, backward search, SA walk, the fused locate and
 anchor scan, the seed-table build, the inverse-SA window, the fused
-service round and the rna_seq automaton) against their plain versions,
+service round, the rna_seq automaton, the aligner automaton and its phase
+B's log stitch and compose) against their plain versions,
 and the port's main paths
 on the card against the same paths on the CPU (which the other
 test_torch_*.py files hold against bwt_tpu).
@@ -204,13 +205,18 @@ def test_main_path_on_card_matches_cpu(card):
         if k % 11 == 0:
             r[10] = "N"
         reads.append("".join(r))
-    launches = dp_wavefront.STITCH_LAUNCHES, dp_wavefront.LAUNCHES
-    got = aligner.align_reads(on_card, g, reads, with_strand=True)
-    assert dp_wavefront.STITCH_LAUNCHES > launches[0]
-    assert dp_wavefront.LAUNCHES == launches[1]
     want = aligner.align_reads(on_cpu, g, reads, with_strand=True)
-    assert ([(p, c.render() if c else None, s) for p, c, s in got]
-            == [(p, c.render() if c else None, s) for p, c, s in want])
+    # the default engine stitches from the automaton's log, the host engine
+    # through the executor's stitch; neither launches the standalone fill
+    for engine, counter in (("auto", "LOG_STITCH_LAUNCHES"),
+                            ("host", "STITCH_LAUNCHES")):
+        launches = getattr(dp_wavefront, counter), dp_wavefront.LAUNCHES
+        got = aligner.align_reads(on_card, g, reads, with_strand=True,
+                                  engine=engine)
+        assert getattr(dp_wavefront, counter) > launches[0]
+        assert dp_wavefront.LAUNCHES == launches[1]
+        assert ([(p, c.render() if c else None, s) for p, c, s in got]
+                == [(p, c.render() if c else None, s) for p, c, s in want])
     assert sum(1 for p, _, _ in got if p) > 250
 
 
@@ -755,3 +761,200 @@ def test_automaton_overrun_raises_on_card(card):
             dataclasses.replace(fmi, isa_samples=None), bank, lens, live0,
             ac=14, cc=10, resolve=False)
     assert automaton.AUTOMATON_LAUNCHES == launches + 1
+
+
+# -- the aligner's device engine: K10, K11a, K11b -------------------------
+
+
+def _align_mix(g, rng, n=600):
+    """80-bp reads with one substitution, a 1-3-base indel, N's, random
+    reads, short reads, and 200-bp reads whose logs overflow."""
+    reads = []
+    for k in range(n):
+        j = int(rng.integers(0, len(g) - 90))
+        r = g[j:j + 83].copy()
+        r[int(rng.integers(0, 80))] = rng.integers(0, 4)
+        if k % 5 == 1:
+            d = int(rng.integers(1, 4))
+            r = np.concatenate([r[:40], r[40 + d:]])
+        if k % 5 == 2:
+            r = np.concatenate([r[:40], rng.integers(0, 4, 2).astype(np.uint8),
+                                r[40:]])
+        if k % 13 == 0:
+            r[int(rng.integers(0, 80))] = 5
+        if k % 7 == 0:  # the reverse complement, N staying N
+            r = np.where(r[:80] == 5, 5, 3 - r[:80])[::-1].astype(np.uint8)
+        reads.append(r[:80].copy())
+    reads += [rng.integers(0, 4, 80).astype(np.uint8) for _ in range(20)]
+    reads += [g[j:j + ln].copy() for j, ln in zip(
+        rng.integers(0, len(g) - 30, 9), (1, 4, 5, 11, 12, 13, 15, 20, 22))]
+    for _ in range(4):
+        j = int(rng.integers(0, len(g) - 200))
+        r = g[j:j + 200].copy()
+        r[8::16] = (r[8::16] + 1) % 4
+        reads.append(r)
+    return reads
+
+
+def _align_env(card, seed, seed_k):
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, 60000).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(g, sa_sample_rate=8, device=card)
+    svc = QueryService(fmi, g)
+    reads = _align_mix(g, rng)
+    svc.add_reads_batch(reads, with_revcomp=True)
+    Bp = svc.bank8.shape[0] // 2
+    lens = np.zeros(Bp, np.int32)
+    lens[:len(reads)] = [len(r) for r in reads]
+    seed_rows = search.build_seed_table(fmi, seed_k).rows if seed_k else None
+    return g, fmi, svc, (svc.bank8, torch.from_numpy(lens).to(card),
+                         torch.arange(Bp, device=card) < len(reads), len(g),
+                         seed_rows)
+
+
+@pytest.mark.parametrize("cap", [0, 6], ids=["uncapped", "cap-6"])
+@pytest.mark.parametrize("seed_k", [0, 12], ids=["no-seed", "seed-12"])
+@pytest.mark.parametrize("resolve", [False, True], ids=["raw", "resolve"])
+def test_align_automaton_kernel_matches_plain(card, cap, seed_k, resolve):
+    """K10 against its plain version on the card, bit-equal in every column,
+    the log and the flag: uncapped and at a cap of 6, with and without a
+    k = 12 seed table and N resolution."""
+    from bwt_tpu_torch.ops import automaton
+
+    _, fmi, _, args = _align_env(card, 41, seed_k)
+    kw = dict(anchor_len=12, resolve=resolve, cap_steps=cap, seed_k=seed_k)
+    launches = automaton.ALIGN_LAUNCHES
+    got = automaton.align_automaton_packed(fmi, *args, **kw)
+    assert automaton.ALIGN_LAUNCHES == launches + 1
+    want = automaton.align_automaton_packed(fmi, *args, plain=True, **kw)
+    assert automaton.ALIGN_LAUNCHES == launches + 1
+    assert torch.equal(got, want)
+    v = automaton.align_unpack(got)
+    assert bool(v["capped"].any()) == (cap == 6)
+    if cap == 0:  # the long reads' logs overflow once they run to their end
+        assert bool(v["ovf"].any()) and bool((v["mode"] == 1).any())
+
+
+def test_log_stitch_and_compose_kernels_match_plain(card, monkeypatch):
+    """K11a on every bucket of one chunk's log against its plain version,
+    the accumulators bit-equal after each bucket, in the warp forms, the
+    block form (a bucket padded past 128 rows) and the read-back form (the
+    threshold's test hook at 0); then K11b against its plain version, at
+    the compose's width and at a width of 1."""
+    from bwt_tpu_torch.ops import automaton, compose
+
+    _, fmi, svc, args = _align_env(card, 43, 0)
+    log = automaton.align_automaton_packed(fmi, *args, anchor_len=12,
+                                           resolve=True)
+    v = automaton.align_unpack(log)
+    Lb = svc.bank8.shape[1]
+    NL2 = -(-(Lb + 10) // aligner._DP_GRAN)
+    order, counts = aligner._job_bucket_sort(
+        v["mode"], v["lp"], v["ovf"], v["kinds"], v["rlens"], v["glens"],
+        NB=-(-Lb // aligner._DP_GRAN) * NL2, NL2=NL2)
+    counts = counts.cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    Bp = automaton.align_lanes(log)
+    got, want = dp_wavefront.log_acc(Bp, card), dp_wavefront.log_acc(Bp, card)
+    launches = dp_wavefront.LOG_STITCH_LAUNCHES
+    n = 0
+    for form, pad, tall in (("warp", 0, None), ("block", 160, None),
+                            ("tall", 0, 0)):
+        if tall is not None:
+            monkeypatch.setattr(dp_wavefront, "_TALL_ROWS", tall)
+        for b in np.nonzero(counts)[0].tolist():
+            l1, l2 = divmod(b, NL2)
+            jk, jt = aligner._bucket_ids(order, int(offs[b]), int(counts[b]))
+            kw = dict(L1=aligner._DP_GRAN * (l1 + 1) + pad,
+                      L2=aligner._DP_GRAN * (l2 + 1))
+            dp_wavefront.dp_log_stitch(log, svc.bank, svc.genome_dev, jk, jt,
+                                       got, **kw)
+            dp_wavefront.dp_log_stitch(log, svc.bank, svc.genome_dev, jk, jt,
+                                       want, plain=True, **kw)
+            n += 1
+            assert torch.equal(got, want), (form, b)
+    assert dp_wavefront.LOG_STITCH_LAUNCHES == launches + n
+    assert int(dp_wavefront.acc_unpack(got)[1].sum()) > 0
+    launches = compose.COMPOSE_LAUNCHES
+    for K in (compose.RUNS_K, 1):
+        rows = compose.compose(log, got, K=K)
+        assert torch.equal(rows, compose.compose(log, got, K=K, plain=True))
+    assert compose.COMPOSE_LAUNCHES == launches + 2
+
+
+def test_align_device_engine_on_card_matches_cpu(card, monkeypatch):
+    """align_reads' default engine on the card: one K10 and one K11b launch
+    a chunk, one K11a launch a non-empty bucket, no K7 launch outside the
+    escapes; equal to the CPU run, to the host engine and, through the plain
+    versions (svc_impl, dp_impl), on the card; with a forced cap and a
+    compose width of 1 the escapes hold the results."""
+    from bwt_tpu_torch.ops import automaton, compose
+
+    g, on_card, _, _ = _align_env(card, 47, 0)
+    reads = _align_mix(g, np.random.default_rng(5), n=300)
+
+    def norm(rs):
+        return [(p, c.render() if c else None, s) for p, c, s in rs]
+
+    want = norm(aligner.align_reads(on_card.to("cpu"), g, reads,
+                                    with_strand=True))
+    cfg = dataclasses.replace(DEFAULT, search_batch=128)
+    svc = QueryService(on_card, g, cfg)
+    before = (automaton.ALIGN_LAUNCHES, compose.COMPOSE_LAUNCHES,
+              dp_wavefront.LOG_STITCH_LAUNCHES)
+    got = aligner.align_reads(on_card, g, reads, service=svc,
+                              with_strand=True)
+    st = svc.last_stats
+    assert norm(got) == want
+    assert st["chunks"] == -(-len(reads) // 128) == st["align_launches"]
+    assert automaton.ALIGN_LAUNCHES == before[0] + st["chunks"]
+    assert compose.COMPOSE_LAUNCHES == before[1] + st["chunks"]
+    assert dp_wavefront.LOG_STITCH_LAUNCHES == before[2] + st["buckets"]
+    assert st["fallback"] >= 4  # the overflowing logs
+    assert norm(aligner.align_reads(on_card, g, reads, engine="host",
+                                    with_strand=True)) == want
+    svc.svc_impl = svc.dp_impl = "plain"
+    assert norm(aligner.align_reads(on_card, g, reads, service=svc,
+                                    with_strand=True)) == want
+    assert svc.last_stats["align_launches"] == 0
+    monkeypatch.setattr(aligner, "_TEST_CAP", 4)
+    monkeypatch.setattr(aligner, "_RUNS_K", 1)
+    svc = QueryService(on_card, g)
+    assert norm(aligner.align_reads(on_card, g, reads, service=svc,
+                                    with_strand=True)) == want
+    assert svc.last_stats["capped"] > 0 and svc.last_stats["redo"] > 0
+
+
+def test_align_automaton_overrun_raises_on_card(card):
+    """On a np.zeros genome a read ending in C starts the anchor's walk
+    from a row past the suffix array: K10 raises as its plain version does,
+    naming the row; a wrong bank or an index without isa_samples raises
+    before any launch."""
+    from bwt_tpu_torch.ops import automaton
+
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), sa_sample_rate=4,
+                                    device=card)
+    svc = QueryService(fmi, np.zeros(64, np.uint8))
+    svc.add_reads_batch([np.zeros(20, np.uint8)] * 3
+                        + [np.array([0] * 19 + [1], np.uint8)] * 2,
+                        with_revcomp=True)
+    Bp = svc.bank8.shape[0] // 2
+    lens = torch.full((Bp,), 20, dtype=torch.int32, device=card)
+    live0 = torch.arange(Bp, device=card) < 5
+    launches = automaton.ALIGN_LAUNCHES
+    for plain in (False, True):
+        out = None
+        with pytest.raises(RuntimeError, match="row 65 did not reach"):
+            out = automaton.align_automaton_packed(
+                fmi, svc.bank8, lens, live0, 64, anchor_len=12,
+                resolve=False, plain=plain)
+            automaton.align_automaton_raise(fmi, out)
+    assert automaton.ALIGN_LAUNCHES == launches + 1
+    with pytest.raises(ValueError, match="bank"):
+        automaton.align_automaton_packed(fmi, svc.bank, lens, live0, 64,
+                                         anchor_len=12, resolve=False)
+    with pytest.raises(ValueError, match="isa_samples"):
+        automaton.align_automaton_packed(
+            dataclasses.replace(fmi, isa_samples=None), svc.bank8, lens,
+            live0, 64, anchor_len=12, resolve=False)
+    assert automaton.ALIGN_LAUNCHES == launches + 1

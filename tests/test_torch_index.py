@@ -208,3 +208,34 @@ def test_wide_index_is_refused(tmp_path, case):
     np.savez(tmp_path / "wide.npz", version=np.int32(2), **d)
     with pytest.raises(ValueError, match="wide"):
         tio.read_npz_index(tmp_path / "wide.npz", device="cpu")
+
+
+def test_no_card_without_device_raises(tmp_path, monkeypatch):
+    """Without a card, an entry point called with no device raises and
+    names device="cpu": the port never falls back to the CPU by itself.
+    The CLI's default platform is the card, and exits 1 without one."""
+    from bwt_tpu_torch import cli as tcli
+    from bwt_tpu_torch.ops import dp_wavefront
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = jcodec.random_genome(300, seed=4)
+    jfmi = bwt_tpu.build_index(g)
+    jio.write_ref_index(jfmi, tmp_path / "g.idx")
+    arrays = {f: np.asarray(getattr(jfmi, f)) for f in FIELDS
+              if getattr(jfmi, f) is not None}
+    arrays.update(length=jfmi.length, sa_rate=jfmi.sa_rate)
+    calls = (lambda: bwt_tpu_torch.build_index(g),
+             lambda: bwt_tpu_torch.from_numpy(arrays),
+             lambda: tio.read_ref_index(tmp_path / "g.idx"),
+             lambda: dp_wavefront.nw_fast_batch(
+                 np.zeros((1, 4), np.int32), [4], np.zeros((1, 4), np.int32),
+                 [4]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    (tmp_path / "g.txt").write_text(g)
+    (tmp_path / "r.txt").write_text(g[10:40] + "\n")
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["locate", str(tmp_path / "g.txt"), str(tmp_path / "g.idx"),
+                   str(tmp_path / "r.txt")])
+    assert e.value.code == 1
