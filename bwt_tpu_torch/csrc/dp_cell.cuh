@@ -24,14 +24,15 @@
 //
 //   sweep_warp   a job of up to 128 rows is one warp.  Lane l owns rows l,
 //                l + 32, l + 64, l + 96 (as many stripes as the shape has,
-//                a template argument) and keeps v(d-1), p(d-1) and the
-//                upper-left value of each in registers; the row above comes
-//                by a rotating shuffle (lane 0 of a stripe takes lane 31 of
-//                the stripe below it); the genome character moves down the
-//                rows systolically by one more shuffle, fed at row 0 from a
-//                32-character chunk the lanes load together.  No barrier, no
-//                shared memory, no device-memory read in the loop, and
-//                several jobs share a block.
+//                a template argument; for the stitch, which reads no cell
+//                of row 0, rows l + 1, l + 33, ...) and keeps v(d-1), p(d-1)
+//                and the upper-left value of each in registers; the row
+//                above comes by a rotating shuffle (lane 0 of a stripe takes
+//                lane 31 of the stripe below it); the genome character moves
+//                down the rows systolically by one more shuffle, fed at the
+//                top row from a 32-character chunk the lanes load together.
+//                No barrier, no shared memory, no device-memory read in the
+//                loop, and several jobs share a block.
 //   sweep_block  a taller job is one block: rows strided over the threads,
 //                the carried diagonals (three of values, two of pointers,
 //                so that one barrier a diagonal suffices) in shared memory.
@@ -77,20 +78,26 @@ __device__ __forceinline__ void cell(const Scoring& s, int d, int i, int rc,
 }
 
 // One warp sweeps diagonals 0..dlast of a job of `rows` <= 32 * kStripes
-// rows.  read_at(k): the read's code at 0 <= k < rows - 1; genome_at(k):
-// the genome's code at k >= 0, 0 past its end.  All 32 lanes must call it.
-// The stripe count is a template argument and no stripe is skipped: the
-// stripes of a step are independent chains, and only without a branch
-// between them does the compiler interleave them.
-template <int kStripes, class ReadAt, class GenomeAt, class Sink>
+// rows (kFromRow1: rows - 1 <= 32 * kStripes).  read_at(k): the read's code
+// at 0 <= k < rows - 1; genome_at(k): the genome's code at k >= 0, 0 past
+// its end.  All 32 lanes must call it.  Lane l of stripe k holds row 32 k +
+// l, or with kFromRow1 row 32 k + l + 1: row 0 is all border, so the stitch,
+// which reads no row-0 cell, keeps it in two registers (made by cell() a
+// diagonal behind) and spends no stripe on it.  The stripe count is a
+// template argument and no stripe is skipped: the stripes of a step are
+// independent chains, and only without a branch between them does the
+// compiler interleave them.
+template <int kStripes, bool kFromRow1 = false, class ReadAt,
+          class GenomeAt, class Sink>
 __device__ __forceinline__ void sweep_warp(const Scoring& s, int rows,
                                            int dlast, ReadAt read_at,
                                            GenomeAt genome_at, Sink& sink) {
+  constexpr int kBase = kFromRow1 ? 1 : 0;  // the row of lane 0, stripe 0
   const int lane = threadIdx.x & 31;
   int v1[kStripes], p1[kStripes], vd[kStripes], gc[kStripes], rc[kStripes];
 #pragma unroll
   for (int k = 0; k < kStripes; ++k) {
-    const int i = 32 * k + lane;
+    const int i = 32 * k + lane + kBase;
     v1[k] = p1[k] = vd[k] = gc[k] = 0;
     rc[k] = (i >= 1 && i < rows) ? read_at(i - 1) : 0;
     sink.put(0, i, k, 0, 0);
@@ -99,10 +106,13 @@ __device__ __forceinline__ void sweep_warp(const Scoring& s, int rows,
   const int from = (lane + 31) & 31;  // the lane above, lane 0 wraps to 31
   const bool seam = lane == 0;
   int chunk = 0;
+  int v0 = 0, p0 = 0;  // kFromRow1: row 0's cell on the diagonal before
   for (int d = 1; d <= dlast; ++d) {
-    // column d enters at row 0
-    if (((d - 1) & 31) == 0) chunk = genome_at(d - 1 + lane);
-    const int gin = __shfl_sync(kFullMask, chunk, (d - 1) & 31);
+    // the top row's column enters: column d at row 0, d - 1 at row 1 (code
+    // e = d - 1 - kBase; the cell of e < 0 is a border)
+    const int e = d - 1 - kBase;
+    if ((e & 31) == 0) chunk = genome_at(e + lane);
+    const int gin = __shfl_sync(kFullMask, chunk, e & 31);
     // every stripe's row above, taken before any stripe overwrites v1, p1
     int rv[kStripes], rp[kStripes], rg[kStripes];
 #pragma unroll
@@ -113,10 +123,10 @@ __device__ __forceinline__ void sweep_warp(const Scoring& s, int rows,
     }
 #pragma unroll
     for (int k = 0; k < kStripes; ++k) {
-      const int vup = seam ? (k ? rv[k ? k - 1 : 0] : 0) : rv[k];
-      const int pup = seam ? (k ? rp[k ? k - 1 : 0] : 0) : rp[k];
+      const int vup = seam ? (k ? rv[k ? k - 1 : 0] : v0) : rv[k];
+      const int pup = seam ? (k ? rp[k ? k - 1 : 0] : p0) : rp[k];
       const int g = seam ? (k ? rg[k ? k - 1 : 0] : gin) : rg[k];
-      const int i = 32 * k + lane;
+      const int i = 32 * k + lane + kBase;
       int v, p;
       cell(s, d, i, rc[k], g, vd[k], v1[k], p1[k], vup, pup, v, p);
       vd[k] = vup;
@@ -125,6 +135,7 @@ __device__ __forceinline__ void sweep_warp(const Scoring& s, int rows,
       gc[k] = g;
       sink.put(d, i, k, v, p);
     }
+    if constexpr (kFromRow1) cell(s, d, 0, 0, 0, 0, 0, 0, 0, 0, v0, p0);
     sink.diagonal(d, v1);
   }
 }

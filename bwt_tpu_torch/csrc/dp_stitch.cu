@@ -34,9 +34,10 @@
 // What bounds it on the H100: operations (19 a cell; the bytes are a few KB
 // a job) and, in practice, the latency of the diagonal chain, which the
 // sweeps keep on the SM.  The launcher picks by shape (dp_stitch_plan):
-//   warp   L1 + 1 <= 128 and kWarpJobs jobs' pointers fit shared memory: a
-//          warp a job, diagonals in registers, two stripes of rows (L1 + 1
-//          <= 64) or four.  Every shape the aligner sends on short reads;
+//   warp   L1 <= 128 and kWarpJobs jobs' pointers fit shared memory: a warp
+//          a job, diagonals in registers, rows 1..L1 in one stripe of 32
+//          lanes (L1 <= 32), two or four (row 0 is borders, which no walk
+//          reads).  Every shape the aligner sends on short reads;
 //   block  any other shape up to L1 = 11,621: a block a job, the carried
 //          diagonals in shared memory, the pointers a byte a cell in device
 //          memory (scratch from the caller);
@@ -55,15 +56,17 @@
 // dp_log_stitch_plain.  Job b is slot jt[b] of lane jk[b] of the automaton's
 // packed output (align_automaton.cu): its kind picks a head stitch (both
 // slices reversed, nw endpoint), an SW gap fill or an NW tail, its row is 2
-// lane + strand.  The walking thread writes no op row: it builds the job's
-// block as _dp_blocks_core does, straight into the chunk-wide accumulator
-// runs_oc[lane, slot, 0 : runs + 2], each entry (op + 2) << 24 | count: the
-// kept runs in walk order (zero runs up to the reported count), the I and D
-// residuals, padding 1 << 24, then, for an NW or head stitch, the first bl
-// entries reversed in place (the Cigar flip).  It sets bl3[lane, slot] =
-// bl, adds maxloc - 1 to head_end[lane] for a head stitch and raises
-// over[lane] where the job has more runs than `runs`.  Bounded as the row
-// form.
+// lane + strand; its fields come in one round of loads after (lane, slot).
+// The walking thread writes no op row: it builds the job's block as
+// _dp_blocks_core does, the kept runs in shared memory as the walk closes
+// them, then the warp stores each entry of runs_oc[lane, slot, 0 : runs +
+// 2] once, side by side on its lanes, (op + 2) << 24 | count: the kept runs
+// in walk order (zero runs up to the reported count), the I and D
+// residuals, padding 1 << 24, the first bl entries reversed for an NW or
+// head stitch (the Cigar flip).  Nothing written to device memory is read
+// back.  The walking thread sets bl3[lane, slot] = bl, adds maxloc - 1 to
+// head_end[lane] for a head stitch and raises over[lane] where the job has
+// more runs than `runs`.  Bounded as the row form.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -159,11 +162,12 @@ struct Endpoint {
   }
 };
 
-// The warp form keeps a diagonal's pointers as two bit planes a stripe: bit
-// l of word 2 * (d * kStripes + k) is the low bit of the pointer of row
-// 32 * k + l on diagonal d, of the next word the high bit.  A ballot makes
-// each plane, lane 0 stores both, and no lane tests whether its cell lies in
-// the job: the walk reads none that does not.
+// The warp form sweeps rows 1..i0 (dp::sweep_warp with kFromRow1: row 0 is
+// all border and no walk reads it) and keeps a diagonal's pointers as two bit
+// planes a stripe: bit l of word 2 * (d * kStripes + k) is the low bit of the
+// pointer of row 32 * k + l + 1 on diagonal d, of the next word the high
+// bit.  A ballot makes each plane, lane 0 stores both, and no lane tests
+// whether its cell lies in the job: the walk reads none that does not.
 template <int kStripes>
 struct WarpSink {
   uint2* planes;
@@ -174,10 +178,13 @@ struct WarpSink {
     w.y = __ballot_sync(dp::kFullMask, p & 2);
     if ((threadIdx.x & 31) == 0) planes[d * kStripes + k] = w;
   }
+  // the lane of row i0 (i0 >= 1) keeps the end row's first maximum
   __device__ __forceinline__ void diagonal(int d, const int (&v)[kStripes]) {
     int mine = v[0];
 #pragma unroll
-    for (int k = 1; k < kStripes; ++k) mine = (end.i0 >> 5) == k ? v[k] : mine;
+    for (int k = 1; k < kStripes; ++k) {
+      mine = ((end.i0 - 1) >> 5) == k ? v[k] : mine;
+    }
     end.watch(d, mine);
   }
 };
@@ -186,10 +193,22 @@ struct WarpPointers {
   const uint2* planes;
   int stripes;
   __device__ __forceinline__ int at(int i, int j) const {
-    const uint2 w = planes[(i + j) * stripes + (i >> 5)];
-    return ((w.x >> (i & 31)) & 1) | (((w.y >> (i & 31)) & 1) << 1);
+    const int r = i - 1;
+    const uint2 w = planes[(i + j) * stripes + (r >> 5)];
+    return ((w.x >> (r & 31)) & 1) | (((w.y >> (r & 31)) & 1) << 1);
   }
 };
+
+// The end row when it is row 0 (rlen 0), which the warp form does not
+// sweep: its border cells in order.
+__device__ __forceinline__ void row0_end(const dp::Scoring& s, Endpoint& end) {
+  end.watch(0, 0);
+  for (int j = 1; j <= end.jmax; ++j) {
+    int v, p;
+    dp::cell(s, j, 0, 0, 0, 0, 0, 0, 0, 0, v, p);
+    end.watch(j, v);
+  }
+}
 
 // The block form keeps them a byte a cell, (i, j) at i * width + j of the
 // job's scratch in device memory.
@@ -286,7 +305,13 @@ struct RowForm {
     }
   };
 
-  __device__ __forceinline__ Job job(int b, int L1, int L2) const {
+  static constexpr bool kBuffered = false;  // writes its runs as they close
+  struct Ids {
+    int b;
+  };
+  __device__ __forceinline__ Ids ids(int b) const { return Ids{b}; }
+  __device__ __forceinline__ Job job(const Ids& id, int L1, int L2) const {
+    const int b = id.b;
     return make_job(t, L1, L2, __ldg(f.row + b), __ldg(f.roff + b),
                     __ldg(f.rlen + b), __ldg(f.rrev + b), __ldg(f.gstart + b),
                     __ldg(f.glen + b), __ldg(f.grev + b),
@@ -300,9 +325,9 @@ struct RowForm {
     int* p = packed + (size_t)b * (4 + 2 * runs);
     for (int k = 4 + tid; k < 4 + 2 * runs; k += nthreads) p[k] = 0;
   }
-  __device__ __forceinline__ Sink sink(int b, int D) const {
-    return Sink{packed + (size_t)b * (4 + 2 * runs), ops + (size_t)b * D,
-                runs};
+  __device__ __forceinline__ Sink sink(const Ids& id, int D, int*, int) const {
+    return Sink{packed + (size_t)id.b * (4 + 2 * runs),
+                ops + (size_t)id.b * D, runs};
   }
 };
 
@@ -318,65 +343,114 @@ struct LogForm {
   int* acc;
   int runs;
 
+  static constexpr bool kBuffered = true;  // its runs wait in shared memory
+
   // the log column c of slot e = lane * 16 + slot
   __device__ __forceinline__ int at(int c, size_t e) const {
     return __ldg(log + alog::log_col(c, Bp) + e);
   }
 
+  // A walk leaves its block in shared memory: the kept runs at buf[t *
+  // stride], t < runs, then kMeta ints: kept, the block's reported runs nr,
+  // the residuals i and j, the slot e (-1: no job) and the flip.  store()
+  // then writes the block's entries, each once, in their final places.
+  static constexpr int kMeta = 6;
+  static __host__ __device__ int buffer_ints(int runs) {
+    return runs + kMeta;
+  }
+
   struct Sink {
-    int* block;  // runs_oc[lane, slot]
+    int* buf;  // shared memory
+    int stride;
     int* bl3;
     int* head_end;
     int* over;
     int runs;
+    int e;
     bool flip, head;
     __device__ __forceinline__ void step(int, int) const {}
     __device__ __forceinline__ void run(int t, int op, int len) const {
-      block[t] = ((op + 2) << 24) | len;
+      buf[t * stride] = ((op + 2) << 24) | len;
     }
     __device__ __forceinline__ void done(int maxloc, int i, int j, int nrun,
                                          int kept) const {
       const int nr = min(nrun, runs);
-      for (int t = kept; t < nr; ++t) block[t] = 2 << 24;
-      int bl = nr;
-      if (i > 0) block[bl++] = (3 << 24) | i;
-      if (j > 0) block[bl++] = (4 << 24) | j;
-      for (int t = bl; t < runs + 2; ++t) block[t] = 1 << 24;
-      if (flip) {
-        for (int a = 0, z = bl - 1; a < z; ++a, --z) {
-          const int x = block[a];
-          block[a] = block[z];
-          block[z] = x;
-        }
-      }
-      *bl3 = bl;
+      int* m = buf + runs * stride;
+      m[0] = kept;
+      m[stride] = nr;
+      m[2 * stride] = i;
+      m[3 * stride] = j;
+      m[4 * stride] = e;
+      m[5 * stride] = flip ? 1 : 0;
+      *bl3 = nr + (i > 0) + (j > 0);
       if (head) atomicAdd(head_end, maxloc - 1);
       if (nrun > runs) atomicMax(over, 1);
     }
   };
 
-  __device__ __forceinline__ Job job(int b, int L1, int L2) const {
+  // Entries first, first + step, ... of the block a walk left at buf: the
+  // kept runs in walk order (zero runs up to the reported count), the I and
+  // D residuals, padding 1 << 24, the first bl reversed for a flip (the
+  // Cigar flip).  The lanes of a warp store a block's entries side by side.
+  __device__ __forceinline__ void store(const int* buf, int stride, int first,
+                                        int step) const {
+    const int* m = buf + runs * stride;
+    const int e = m[4 * stride];
+    if (e < 0) return;
+    const int kept = m[0], nr = m[stride], i = m[2 * stride];
+    const int j = m[3 * stride];
+    const bool flip = m[5 * stride] != 0;
+    const int bl = nr + (i > 0) + (j > 0);
+    int* block = acc + (size_t)e * (runs + 2);
+    for (int t = first; t < runs + 2; t += step) {
+      const int u = flip ? bl - 1 - t : t;  // the entry in walk order
+      block[t] = t >= bl               ? 1 << 24
+                 : u < kept            ? buf[u * stride]
+                 : u < nr              ? 2 << 24
+                 : (u == nr && i > 0)  ? (3 << 24) | i
+                                       : (4 << 24) | j;
+    }
+  }
+
+  // (lane, slot) and the kind, then every field in one round of loads
+  struct Ids {
+    int lane;
+    size_t e;
+    int kind;
+  };
+  __device__ __forceinline__ Ids ids(int b) const {
     const int lane = __ldg(jk + b);
     const size_t e = (size_t)lane * alog::kLogN + __ldg(jt + b);
-    const int kind = at(alog::kKinds, e);
-    const int head = kind == alog::kHead ? 1 : 0;
-    const int strand = __ldg(log + alog::col(alog::kStrand, Bp) + lane);
-    return make_job(t, L1, L2, 2 * lane + strand, at(alog::kRoffs, e),
-                    at(alog::kRlens, e), head, at(alog::kGstarts, e),
-                    at(alog::kGlens, e), head, kind == alog::kSw ? 0 : 1);
+    return Ids{lane, e, at(alog::kKinds, e)};
+  }
+  __device__ __forceinline__ Job job(const Ids& id, int L1, int L2) const {
+    const int head = id.kind == alog::kHead ? 1 : 0;
+    const int strand = __ldg(log + alog::col(alog::kStrand, Bp) + id.lane);
+    return make_job(t, L1, L2, 2 * id.lane + strand, at(alog::kRoffs, id.e),
+                    at(alog::kRlens, id.e), head, at(alog::kGstarts, id.e),
+                    at(alog::kGlens, id.e), head,
+                    id.kind == alog::kSw ? 0 : 1);
   }
   __device__ __forceinline__ void prefill(int, int, int, int) const {}
-  __device__ __forceinline__ Sink sink(int b, int) const {
-    const int lane = __ldg(jk + b);
-    const size_t e = (size_t)lane * alog::kLogN + __ldg(jt + b);
-    const int kind = at(alog::kKinds, e);
+  __device__ __forceinline__ Sink sink(const Ids& id, int, int* buf,
+                                       int stride) const {
     const int W = runs + 2;
-    return Sink{acc + e * W, acc + alog::acc_bl3(Bp, W) + e,
-                acc + alog::acc_head_end(Bp, W) + lane,
-                acc + alog::acc_over(Bp, W) + lane, runs, kind != alog::kSw,
-                kind == alog::kHead};
+    return Sink{buf, stride, acc + alog::acc_bl3(Bp, W) + id.e,
+                acc + alog::acc_head_end(Bp, W) + id.lane,
+                acc + alog::acc_over(Bp, W) + id.lane, runs, (int)id.e,
+                id.kind != alog::kSw, id.kind == alog::kHead};
   }
 };
+
+// the shared memory a form's walking thread keeps its block in, in ints
+template <class Form>
+__host__ __device__ int buffer_ints(int runs) {
+  if constexpr (Form::kBuffered) {
+    return Form::buffer_ints(runs);
+  } else {
+    return 0;
+  }
+}
 
 template <int kStripes, class Form>
 __global__ void __launch_bounds__(32 * kWarpJobs)
@@ -387,19 +461,29 @@ dp_stitch_warp_kernel(Form form, int B, int L1, int L2, dp::Scoring s) {
   if (b >= B) return;  // a whole warp
   const int D = L1 + L2 + 1;
   form.prefill(b, D, lane, 32);
-  const Job job = form.job(b, L1, L2);
-  uint2* planes = shared_planes + (size_t)(threadIdx.x >> 5) * D * kStripes;
+  const auto id = form.ids(b);
+  const Job job = form.job(id, L1, L2);
+  const int warp = threadIdx.x >> 5;
+  uint2* planes = shared_planes + (size_t)warp * D * kStripes;
+  int* buf = reinterpret_cast<int*>(shared_planes +
+                                    (size_t)kWarpJobs * D * kStripes) +
+             warp * buffer_ints<Form>(form.runs);
   WarpSink<kStripes> sink{planes, Endpoint{job.i0, job.jmax}};
-  if (job.jmax >= 0) {
-    dp::sweep_warp<kStripes>(
+  if (job.jmax >= 0 && job.i0 >= 1) {  // the same for the whole warp
+    dp::sweep_warp<kStripes, true>(
         s, job.i0 + 1, job.i0 + job.jmax,
         [&](int k) { return job.read_at(k); },
         [&](int k) { return job.genome_at(k); }, sink);
   }
   __syncwarp();
-  if (lane == (job.i0 & 31)) {
+  if (lane == ((job.i0 + 31) & 31)) {  // row i0's lane; lane 31 for row 0
+    if (job.i0 == 0 && job.jmax >= 0) row0_end(s, sink.end);
     finish(job, sink.end, WarpPointers{planes, kStripes}, D, form.runs,
-           form.sink(b, D));
+           form.sink(id, D, buf, 1));
+  }
+  if constexpr (Form::kBuffered) {  // the whole warp stores the block
+    __syncwarp();
+    form.store(buf, 1, lane, 32);
   }
 }
 
@@ -414,11 +498,15 @@ dp_stitch_block_kernel(Form form, int L1, int L2, dp::Scoring s,
   const int D = L1 + L2 + 1;
   const int rows = L1 + 1;
   form.prefill(b, D, threadIdx.x, blockDim.x);
-  const Job job = form.job(b, L1, L2);
+  const auto id = form.ids(b);
+  const Job job = form.job(id, L1, L2);
   unsigned char* cells = scratch + (size_t)b * job_bytes;
   int* carry = shared_carry;
+  int* buf = shared_carry;
   if constexpr (kTall) {
     carry = reinterpret_cast<int*>(cells + cells_bytes(L1, L2));
+  } else {
+    buf += dp::kCarried * rows;
   }
   BlockSink sink{cells, L2 + 1, Endpoint{job.i0, job.jmax}};
   if (job.jmax >= 0) {  // the same for the whole block
@@ -430,11 +518,13 @@ dp_stitch_block_kernel(Form form, int L1, int L2, dp::Scoring s,
   __syncthreads();
   if (threadIdx.x == job.i0 % blockDim.x) {
     finish(job, sink.end, BlockPointers{cells, L2 + 1}, D, form.runs,
-           form.sink(b, D));
+           form.sink(id, D, buf, 1));
+    if constexpr (Form::kBuffered) form.store(buf, 1, 0, 1);
   }
 }
 
-int warp_stripes(int L1) { return L1 + 1 <= 64 ? 2 : 4; }
+// stripes of 32 rows for rows 1..L1
+int warp_stripes(int L1) { return L1 <= 32 ? 1 : L1 <= 64 ? 2 : 4; }
 
 // bytes of a job's pointers in the warp form: two bit planes a stripe and
 // diagonal
@@ -453,16 +543,20 @@ size_t carry_bytes(int L1) {
 // tall_l1 or where the block form's diagonals do not fit shared memory;
 // and the bytes of device scratch it then needs from the caller for each
 // job (0 in the warp form; the pointers, and in the tall form the carried
-// diagonals after them).
-extern "C" int dp_stitch_plan(int L1, int L2, int tall_l1,
+// diagonals after them).  log_runs: the log form's runs, whose blocks wait
+// in shared memory, or -1 for the row form.
+extern "C" int dp_stitch_plan(int L1, int L2, int tall_l1, int log_runs,
                               long long* scratch_bytes) {
   *scratch_bytes = 0;
-  if (L1 > tall_l1 || carry_bytes(L1) > (size_t)dp::kMaxShared) {
+  const int buf_ints = log_runs < 0 ? 0 : LogForm::buffer_ints(log_runs);
+  const size_t buf = sizeof(int) * (size_t)buf_ints;
+  if (L1 > tall_l1 || carry_bytes(L1) + buf > (size_t)dp::kMaxShared) {
     *scratch_bytes = (long long)(cells_bytes(L1, L2) + carry_bytes(L1));
     return 2;
   }
-  if (L1 + 1 <= dp::kWarpRows &&
-      kWarpJobs * warp_pointer_bytes(L1, L2) <= (size_t)dp::kMaxShared) {
+  if (L1 <= dp::kWarpRows &&
+      kWarpJobs * (warp_pointer_bytes(L1, L2) + buf) <=
+          (size_t)dp::kMaxShared) {
     return 0;
   }
   *scratch_bytes = (long long)cells_bytes(L1, L2);
@@ -477,21 +571,27 @@ template <class Form>
 int launch(const Form& form, int B, int L1, int L2, dp::Scoring s,
            int tall_l1, unsigned char* scratch, cudaStream_t st) {
   long long job_bytes;
-  const int plan = dp_stitch_plan(L1, L2, tall_l1, &job_bytes);
+  const int plan = dp_stitch_plan(
+      L1, L2, tall_l1, Form::kBuffered ? form.runs : -1, &job_bytes);
   if (job_bytes != 0 && scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool two = warp_stripes(L1) == 2;
-  const size_t smem = plan == 0   ? kWarpJobs * warp_pointer_bytes(L1, L2)
-                      : plan == 1 ? carry_bytes(L1)
-                                  : 0;
+  const size_t buf = sizeof(int) * (size_t)buffer_ints<Form>(form.runs);
+  const int stripes = warp_stripes(L1);
+  const size_t smem =
+      plan == 0   ? kWarpJobs * (warp_pointer_bytes(L1, L2) + buf)
+      : plan == 1 ? carry_bytes(L1) + buf
+                  : buf;
   const void* kernel =
       plan == 2 ? reinterpret_cast<const void*>(
                       dp_stitch_block_kernel<true, Form>)
       : plan == 1
           ? reinterpret_cast<const void*>(dp_stitch_block_kernel<false, Form>)
-      : two ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2, Form>)
-            : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4, Form>);
+      : stripes == 1
+          ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<1, Form>)
+      : stripes == 2
+          ? reinterpret_cast<const void*>(dp_stitch_warp_kernel<2, Form>)
+          : reinterpret_cast<const void*>(dp_stitch_warp_kernel<4, Form>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -499,7 +599,10 @@ int launch(const Form& form, int B, int L1, int L2, dp::Scoring s,
   }
   if (plan == 0) {
     const int blocks = (B + kWarpJobs - 1) / kWarpJobs;
-    if (two) {
+    if (stripes == 1) {
+      dp_stitch_warp_kernel<1, Form><<<blocks, 32 * kWarpJobs, smem, st>>>(
+          form, B, L1, L2, s);
+    } else if (stripes == 2) {
       dp_stitch_warp_kernel<2, Form><<<blocks, 32 * kWarpJobs, smem, st>>>(
           form, B, L1, L2, s);
     } else {
@@ -513,7 +616,7 @@ int launch(const Form& form, int B, int L1, int L2, dp::Scoring s,
       dp_stitch_block_kernel<false, Form><<<B, threads, smem, st>>>(
           form, L1, L2, s, scratch, (size_t)job_bytes);
     } else {
-      dp_stitch_block_kernel<true, Form><<<B, threads, 0, st>>>(
+      dp_stitch_block_kernel<true, Form><<<B, threads, smem, st>>>(
           form, L1, L2, s, scratch, (size_t)job_bytes);
     }
   }
@@ -524,7 +627,7 @@ int launch(const Form& form, int B, int L1, int L2, dp::Scoring s,
 
 // bank (R, Lb) and genome (G,) int32; the eight job fields (B,) int32 each;
 // packed (B, 4 + 2 * runs) and ops (B, L1+L2+1) int32; scratch as
-// dp_stitch_plan(L1, L2, tall_l1) asks (B times its size, 16-byte
+// dp_stitch_plan(L1, L2, tall_l1, -1) asks (B times its size, 16-byte
 // aligned), else null.  All contiguous, on the device.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dp_stitch_launch(
@@ -550,8 +653,8 @@ extern "C" int dp_stitch_launch(
 // (2 Bp, Lb) and genome (G,) int32; jk, jt (J,) int32, the jobs' lanes and
 // slots, each a valid job of the log; acc the chunk's accumulators (both
 // layouts align_log.cuh's, a block runs + 2 entries); scratch as
-// dp_stitch_plan(L1, L2, tall_l1) asks (J times its size), else null.  All
-// contiguous, on the device.  Launches on `stream` and returns
+// dp_stitch_plan(L1, L2, tall_l1, runs) asks (J times its size), else null.
+// All contiguous, on the device.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int dp_log_stitch_launch(
     const int* log, int Bp, const int* bank, int Lb, const int* genome, int G,

@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
             LL = ctypes.POINTER(ctypes.c_longlong)
             for name, argtypes in (
                     ("dp_wavefront_launch", [P] * 4 + [I] * 7 + [P]),
-                    ("dp_stitch_plan", [I, I, I, LL]),
+                    ("dp_stitch_plan", [I, I, I, I, LL]),
                     ("dp_stitch_launch",
                      [P, I, I, P, I] + [P] * 8 + [I] * 9 + [P] * 4),
                     ("backward_search_launch",

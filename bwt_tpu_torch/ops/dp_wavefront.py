@@ -300,7 +300,7 @@ def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
     if B:
         lib = _kernels.library()
         job_bytes = ctypes.c_longlong()
-        lib.dp_stitch_plan(L1, L2, _TALL_ROWS, ctypes.byref(job_bytes))
+        lib.dp_stitch_plan(L1, L2, _TALL_ROWS, -1, ctypes.byref(job_bytes))
         # the pointers a byte a cell where the job is too tall for a warp,
         # and the carried diagonals where it is too tall for shared memory
         scratch = None
@@ -532,7 +532,7 @@ def dp_log_stitch(log, bank, genome, jk, jt, acc, *, L1: int, L2: int,
         return None
     lib = _kernels.library()
     job_bytes = ctypes.c_longlong()
-    lib.dp_stitch_plan(L1, L2, _TALL_ROWS, ctypes.byref(job_bytes))
+    lib.dp_stitch_plan(L1, L2, _TALL_ROWS, RLE_R, ctypes.byref(job_bytes))
     scratch = None
     if job_bytes.value:
         scratch = torch.empty(J * job_bytes.value, dtype=torch.uint8,

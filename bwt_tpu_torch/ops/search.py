@@ -148,17 +148,55 @@ class SeedTable:
     k: int
 
 
-_SEED_CHUNK = 1 << 22  # keys per pass of the plain build (bounds memory)
+_SEED_CHUNK = 1 << 22  # keys or parents per pass of the plain build
+
+# the levels of the table that one thread of the K5 kernel expands below a
+# state of its prefix (csrc/seed_rows.cu: kFused)
+SEED_FUSED = 3
+
+
+def seed_prefix(k: int) -> int:
+    """The characters of a key that the K5 schedule searches key by key
+    before it expands the last :data:`SEED_FUSED` levels: max(k - 3, 1)."""
+    return max(k - SEED_FUSED, 1)
+
+
+def _seed_children(fmi: FMIndex, rows: torch.Tensor) -> torch.Tensor:
+    """The four children of each state of ``rows`` ((P, 6) seed-table rows):
+    (4, P, 6), child c the state after one more backward-search step on
+    character c.  Both ends' rows are fetched once and ranked for all four
+    characters; a dead state passes to its children unchanged, as the
+    search's masked step leaves it."""
+    start, end, sp, ep, nmatched, alive = rows.unbind(1)
+    alive = alive != 0
+    rows_s, rs, rows_e, re_ = _fetch_pair(fmi, start, end)
+    lo = rank_ops.row_ranks_all4(rows_s, rs).to(torch.int64)
+    hi = rank_ops.row_ranks_all4(rows_e, re_).to(torch.int64)
+    kids = []
+    for c in range(4):
+        cc = take_c(fmi.C, torch.full_like(start, c)).to(torch.int64)
+        ns = rank_ops.wrap32(cc + lo[:, c])
+        ne = rank_ops.wrap32(cc + hi[:, c])
+        upd = alive & (ne > ns)
+        kids.append(torch.stack([
+            torch.where(alive, ns, start), torch.where(alive, ne, end),
+            torch.where(upd, ns, sp), torch.where(upd, ne, ep),
+            nmatched + upd.to(torch.int32), upd.to(torch.int32)], dim=1))
+    return torch.stack(kids)
 
 
 def _seed_rows_plain(fmi: FMIndex, k: int) -> torch.Tensor:
-    """The plain PyTorch version of the seed-table kernel, on any device:
-    the backward-search state after k steps for every key, computed
-    straight from the key bits (no (4^k, k) pattern matrix), in chunks
-    of keys."""
-    parts = []
-    for lo in range(0, 4 ** k, _SEED_CHUNK):
-        keys = torch.arange(lo, min(lo + _SEED_CHUNK, 4 ** k),
+    """The plain PyTorch version of the seed-table kernel, on any device,
+    on the kernel's schedule: the first ``P = seed_prefix(k)`` characters of
+    every key below 4^P key by key, straight from the key bits (in chunks of
+    keys), then levels P..k-1 in place.  Level t holds the states of the
+    keys mod 4^(t+1); child c of row p < 4^t goes to row p + c * 4^t, so
+    the rows a level reads are the ones its first child overwrites, and no
+    scratch is needed."""
+    out = torch.empty((4 ** k, 6), dtype=torch.int32, device=fmi.device)
+    P = seed_prefix(k)
+    for lo in range(0, 4 ** P, _SEED_CHUNK):
+        keys = torch.arange(lo, min(lo + _SEED_CHUNK, 4 ** P),
                             dtype=torch.int32, device=fmi.device)
         c0 = keys & 3
         start = take_c(fmi.C, c0)
@@ -166,7 +204,7 @@ def _seed_rows_plain(fmi: FMIndex, k: int) -> torch.Tensor:
         alive = end > start
         nmatched = alive.to(torch.int32)
         sp, ep = start, end
-        for t in range(1, k):
+        for t in range(1, P):
             ns, ne = _step(fmi, (keys >> (2 * t)) & 3, start, end)
             ok = ne > ns
             start = torch.where(alive, ns, start)
@@ -176,13 +214,22 @@ def _seed_rows_plain(fmi: FMIndex, k: int) -> torch.Tensor:
             ep = torch.where(upd, ne, ep)
             nmatched = nmatched + upd.to(torch.int32)
             alive = alive & ok
-        parts.append(torch.stack(
-            [start, end, sp, ep, nmatched, alive.to(torch.int32)], dim=1))
-    return torch.cat(parts)
+        out[lo:lo + keys.shape[0]] = torch.stack(
+            [start, end, sp, ep, nmatched, alive.to(torch.int32)], dim=1)
+    for t in range(P, k):
+        n = 4 ** t
+        for lo in range(0, n, _SEED_CHUNK):
+            hi = min(lo + _SEED_CHUNK, n)
+            kids = _seed_children(fmi, out[lo:hi])
+            for c in range(4):
+                out[c * n + lo:c * n + hi] = kids[c]
+    return out
 
 
 def _seed_rows_kernel(fmi: FMIndex, k: int) -> torch.Tensor:
-    """Launch ``csrc/seed_rows.cu`` (K5): one thread a key."""
+    """Launch ``csrc/seed_rows.cu`` (K5) once: a thread a key below
+    4^seed_prefix(k), each expanding its last levels (the plain version's
+    schedule)."""
     global SEED_LAUNCHES
     _check_index(fmi)
     if not 1 <= k <= 15:

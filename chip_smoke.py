@@ -2,6 +2,7 @@
 """Drive bwt_tpu_torch's main path once on an NVIDIA card and check it.
 
     python3 chip_smoke.py [--seed N] [--out FILE]
+    python3 chip_smoke.py --rna-walls N   # rna_seq's device-engine wall alone
 
 Phases, one output line each (phases 2 and 7 one per case, phase 10 three), every number beside
 the card's name and power limit:
@@ -59,7 +60,8 @@ the card's name and power limit:
      executor's kernels: K7 on fuzzed rounds of 2^13 lanes mixing all eight
      opcodes (with and without N resolution, the window scan and a k = 12
      seed table) and on the largest rounds recorded from phase 5, equal in
-     all 13 columns and the flag; K6 on 2^16 windows; K5 at k = 12; the
+     all 13 columns and the flag; K6 on 2^16 windows; K5 at k = 12, with
+     its bucket-row loads under each schedule (seed_loads); the
      latency of one dependent load (K3, one thread searching a 64- and a
      4,096-base genome substring); then the aligner's: K10 on one chunk of
      phase 5's substitution reads and on its indel reads, and its builds
@@ -68,8 +70,9 @@ the card's name and power limit:
      each, the iteration histogram, and the chain of dependent loads,
      longest and mean, at widths 1, 4 and 8, from the plain version's
      rounds (Chain), which must give the same outputs at every width,
-     beside the load latency), K11a on every bucket of the substitution
-     chunk's log (the accumulators) and K11b on its lanes;
+     beside the load latency), K11a on every bucket of both chunks' logs
+     (the accumulators; each bucket's time beside its Part A counts,
+     dp_slots) and K11b on the substitution chunk's lanes;
   8. search_reads on 2^20 unmutated 50-bp reads cut from the genome (a
      uint8 code array): two anchor_scan launches a chunk and no K3 or K4,
      every forward read anchors at its origin, an 8,192-read subset gives
@@ -77,7 +80,8 @@ the card's name and power limit:
   10. rna_seq on 2^16 reads of 50 bp cut from the genome with one base
      complemented (rnaseqtest.c's self-benchmark, cut from its 1 M reads):
      the default engine, the device automaton, one K9 launch a chunk of
-     2^15 reads and no other kernel, unmutated reads report their origin
+     2^15 reads and no other kernel (its wall the median of RNA_WALLS
+     untraced runs), unmutated reads report their origin
      and so does a share of those mutated in their last bases; the host
      engine on the same reads (one K7 launch a service call) equal on all
      of them; a 1,024-read subset equal through the plain automaton on the
@@ -129,8 +133,12 @@ fields, the two slices and its outputs, each once; its operations are
 DP_CELL_OPS times the cells of each job's own (rlen + 1) x (min(glen, L2)
 + 1) matrix, plus one a step of the walk back.  A service round's are its
 search steps, its walk steps, the LF steps of its window chains (a walk
-step each) and one rank a lane; a seed table's the search steps its keys
-take; each counted from the round's own results.  K9's are the search, walk
+step each) and one rank a lane, each counted from the round's own
+results.  A seed table's are what the function needs, whatever the
+schedule: every live state of levels 0..k-2 ranked once at both ends for
+all four characters and its four children made (SEED_PARENT_OPS), its bytes
+the table written and the bucket rows those parents read, each once (the
+steps of a thread a key repeat a parent's work for every key below it).  K9's are the search, walk
 and window steps of every round its chunk's reads needed, counted from the
 plain version's rounds, and its bytes the bank, the lengths and the three
 output columns once, a sector a seed row, window or walk sample, and the
@@ -169,6 +177,7 @@ NW_SHAPE = (96, 128)             # nw_fast_batch's padded read and window
 NW_PAIRS = 4096
 READ_LEN = 80
 SEED_K = 12
+RNA_WALLS = 7                    # untraced runs of rna_seq's device engine
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 OPS_PER_S = 33.5e12   # 132 SMs x 128 lanes x 1.98 GHz
@@ -176,6 +185,7 @@ RANK_OPS = 4 * 7 + 1             # operations of one rank over a fetched row
 SEARCH_STEP_OPS = 2 * RANK_OPS + 4   # of one backward-search step
 WALK_STEP_OPS = RANK_OPS + 6         # of one LF step of the SA walk
 DP_CELL_OPS = 19                     # of one affine-gap DP cell
+SEED_PARENT_OPS = 8 * RANK_OPS + 16  # a seed-table parent's four children
 
 class SmokeFailure(RuntimeError):
     pass
@@ -484,6 +494,83 @@ def stitch_jobs(rng, B, L1, L2, R=64, G=1 << 16):
     return bank, genome, f
 
 
+def log_edge_jobs(rng, Bp=32, Lb=80, G=4096):
+    """Phase B's stitch jobs made by hand in a packed K10 output of ``Bp``
+    reads: (log, bank (2 Bp, Lb), genome (G,), jk, jt), int32 CPU tensors.
+    Every kind (NW tail, SW fill, head) at rlen 0 (row 0 is the end row),
+    glen < 0 (no matrix), glen 0, rlen 32 (the 33rd row of a 32-row
+    bucket) and 64, reads that run past their bank row or genome slices
+    past the genome's end (the clamps), reads with N's, reads cut from the
+    genome with every third genome base deleted (a run a step: more runs
+    than the 40 kept), two head stitches on one read (their endpoints
+    summed), and random jobs up to 64 x 96."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.ops import automaton as au
+
+    log = torch.zeros(au.align_flag_offset(Bp) + 4, dtype=torch.int32)
+    v = au.align_unpack(log)
+    genome = rng.integers(0, 4, size=G).astype(np.int32)
+    bank = rng.integers(0, 4, size=(2 * Bp, Lb)).astype(np.int32)
+    bank[rng.random(bank.shape) < 0.02] = 5
+    strand = rng.integers(0, 2, size=Bp).astype(np.int32)
+    v["strand"][:] = torch.from_numpy(strand)
+    jobs = []  # (lane, kind, roff, rlen, gstart, glen)
+    kinds = (au.K_NW, au.K_SW, au.K_HEAD)
+    for kind in kinds:
+        for rlen, glen in ((0, 10), (0, 0), (5, -2), (7, 0), (32, 32),
+                           (32, 64), (32, 40), (64, 64), (20, 70)):
+            jobs.append((None, kind, None, rlen, None, glen))
+    jobs += [(None, au.K_SW, Lb - 6, 20, None, 30),   # past the bank row
+             (None, au.K_NW, 3, 25, G - 12, 40)]     # past the genome
+    for k in range(6):  # a run a step: 32 matches and 16 deletions
+        lane = len(jobs) % Bp
+        at = int(rng.integers(0, G - 64))
+        src = genome[at:at + 48]
+        row = 2 * lane + int(strand[lane])
+        bank[row, :32] = np.delete(src, np.arange(2, 48, 3))
+        jobs.append((lane, kinds[k % 3] if k % 3 != 2 else au.K_SW, 0, 32,
+                     at, 48))
+    for _ in range(60):
+        rlen = int(rng.integers(1, 65))
+        glen = int(rng.integers(1, 97))
+        jobs.append((None, kinds[int(rng.integers(0, 3))], None, rlen, None,
+                     glen))
+    slots = np.zeros(Bp, np.int64)
+    jk, jt = [], []
+    for i, (lane, kind, roff, rlen, gstart, glen) in enumerate(jobs):
+        if lane is None:
+            lane = i % Bp
+            while slots[lane] >= au.LOGN:
+                lane = (lane + 1) % Bp
+        if roff is None:
+            roff = int(rng.integers(0, max(Lb - rlen, 0) + 1))
+        if gstart is None:
+            gstart = int(rng.integers(0, G - max(glen, 0) + 1))
+        t = int(slots[lane])
+        slots[lane] += 1
+        for name, x in (("kinds", kind), ("roffs", roff), ("rlens", rlen),
+                        ("gstarts", gstart), ("glens", glen)):
+            v[name][lane, t] = x
+        jk.append(lane)
+        jt.append(t)
+    # two head stitches on one read: its endpoint is their sum
+    lane = int(np.argmin(slots))
+    for _ in range(2):
+        t = int(slots[lane])
+        slots[lane] += 1
+        v["kinds"][lane, t], v["roffs"][lane, t] = au.K_HEAD, 0
+        v["rlens"][lane, t], v["glens"][lane, t] = 30, 40
+        v["gstarts"][lane, t] = int(rng.integers(0, G - 40))
+        jk.append(lane)
+        jt.append(t)
+    v["lp"][:] = torch.from_numpy(slots.astype(np.int32))
+    return (log, torch.from_numpy(bank), torch.from_numpy(genome),
+            torch.tensor(jk, dtype=torch.int32),
+            torch.tensor(jt, dtype=torch.int32))
+
+
 def phase_stitch(rng, tag):
     """Phase 2, the fused stitch: both outputs (the six packed ones, the
     op rows) against the plain version, bit-equal; timed beside its bound
@@ -638,8 +725,11 @@ def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
     table = search.build_seed_table(fmi, k=SEED_K)
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t0
+    # K5 is one launch for the whole table: its thread a prefix key expands
+    # the last search.SEED_FUSED levels itself
     require(search.SEED_LAUNCHES == 1,
-            "the seed table was not built by one launch of the K5 kernel")
+            f"the seed table was built by {search.SEED_LAUNCHES} launches of "
+            f"the K5 kernel, not 1")
     report = dict(n=nq, seed_k=SEED_K, seed_table_s=table_s, seed_launches=1)
     for name, st in (("plain", None), (f"seeded k={SEED_K}", table)):
         search.locate(fmi, pats[:1024], lens[:1024], seed_table=st)  # warm-up
@@ -1480,20 +1570,32 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
            "plo < 0", f"B={nwindows} W=32", err, ms, plain_ms, bound,
            f", {steps} steps")
 
-    # K5 at the table's k against the plain build
+    # K5 at the table's k against the plain build.  Its bound is what the
+    # function must do: write the table, read each bucket row a live parent
+    # needs once, and rank each live parent's two rows for all four
+    # characters (SEED_PARENT_OPS); the per-key steps of its prefixes and of
+    # the kernel's first form repeat a parent's work for every key below it
     got = search._seed_rows(fmi, table.k)
     want, plain_ms = _event_ms(lambda: search._seed_rows_plain(fmi, table.k))
     err = _max_abs_diff([got], [want])
     require(torch.equal(got, want) and torch.equal(got, table.rows),
             f"K5 differs from its plain version: max |d| {err}")
-    nm, alive = want[:, 4].long(), want[:, 5] != 0
-    steps = int(torch.where(nm >= 1, nm - 1 + (~alive).long(), 0).sum())
     del want
-    bound = bound_of(4 * got.numel() + _index_bytes(fmi, steps, 0, 0),
-                     SEARCH_STEP_OPS * steps)
+    loads = seed_loads(fmi, table.k)
+    bound = bound_of(
+        4 * got.numel() + min(4 * fmi.buckets.numel(),
+                              32 * loads["level"]["loads"]),
+        SEED_PARENT_OPS * loads["parents"])
     ms = cuda_ms(lambda: search._seed_rows(fmi, table.k), 5)
     report("seed_rows", f"k={table.k}", f"{4 ** table.k} keys", err, ms,
-           plain_ms, bound, f", {steps} steps")
+           plain_ms, bound,
+           f", {loads['parents']} live parents; bucket rows loaded: "
+           f"{loads['subtree']['loads']} (this kernel: {4 ** loads['prefix']}"
+           f" prefixes, then {loads['fused']} levels a thread), "
+           f"{loads['level']['loads']} (a launch a level), "
+           f"{loads['per_key']['loads']} (a thread a key); registers "
+           f"{registers_of('seed_rows_kernel')}")
+    rows[-1].update(loads=loads, launches_per_table=1)
     return rows
 
 
@@ -1812,6 +1914,281 @@ def cpu_chains(n=4096, seed=0, widths=(1, 2, 4, 8), bits=25):
         print(json.dumps(line), flush=True)
 
 
+# --------------------------------------------------------------------------
+# Part A of the K5 and K11a redesigns: the work each schedule issues, counted
+# from the plain versions before any kernel.
+#
+# K5 (the k-mer seed table): a state after t characters is shared by every
+# key that agrees in its first t characters, so a thread a key repeats each
+# parent's row loads for all 4^(k-1-t) keys below it.  seed_loads counts the
+# bucket rows each schedule loads (a step loads one where both ends of its
+# interval lie in one bucket, two otherwise: fm::lf_step), from the states of
+# every level.
+#
+# K11a (phase B's log stitch): a bucket pads its jobs to one shape, and the
+# jobs fill a small part of it.  dp_slots counts, for each form, the cell
+# slots its warps issue (a warp issues for all 32 lanes, whether a lane's
+# cell lies in a job or not), the longest chain of dependent steps a warp
+# waits on, the walk and the block entries.
+# --------------------------------------------------------------------------
+
+
+def seed_loads(fmi, k: int, fused: int = 3) -> dict:
+    """K5's bucket-row loads, and the bytes they and the table move, at
+    ``k`` under three schedules, from the states of levels 0..k-2 (the plain
+    build's ``_seed_children``):
+
+      per_key   a thread a key, its k - 1 steps while alive (the kernel's
+                first form);
+      level     a launch a level: every live parent loaded once, each level's
+                rows written and read back by the next launch;
+      subtree   the keys below 4^P key by key (P = k - ``fused``, at least
+                1), then a thread expands its state's ``fused`` levels in
+                registers and writes only the table's rows.
+
+    A load is one 32-byte bucket row (``sector_bytes`` of L2 traffic);
+    ``written`` and ``read`` are the table rows' bytes through DRAM;
+    ``parents`` the live states of levels 0..k-2, each of which the level
+    order ranks once."""
+    import torch
+
+    from bwt_tpu_torch.ops import rank as rank_ops
+    from bwt_tpu_torch.ops import search
+
+    P = max(k - fused, 1)
+    per_key = level = subtree = parents = 0
+    states = search._seed_rows_plain(fmi, 1)
+    for t in range(k - 1):  # the parents of level t + 1
+        start, end, alive = states[:, 0], states[:, 1], states[:, 5] != 0
+        ia = rank_ops._adjust(fmi.endloc, start) >> 6
+        ib = rank_ops._adjust(fmi.endloc, end) >> 6
+        rows = torch.where(alive, 1 + (ia != ib).long(), 0)
+        parents += int(alive.sum())
+        n = int(rows.sum())
+        per_key += n * 4 ** (k - 1 - t)
+        level += n
+        subtree += n * 4 ** (P - 1 - t) if t < P - 1 else n
+        if t < k - 2:
+            states = search._seed_children(fmi, states).reshape(-1, 6)
+    row = 24
+    table = row * 4 ** k
+    between = sum(4 ** (t + 1) for t in range(k - 1))  # levels 0..k-2
+    return dict(
+        k=k, fused=fused, prefix=P, parents=parents,
+        per_key=dict(loads=per_key, sector_bytes=32 * per_key,
+                     written=table, read=0, launches=1),
+        level=dict(loads=level, sector_bytes=32 * level,
+                   written=table + row * between, read=row * between,
+                   launches=1 + sum(1 for t in range(k) if 4 ** (t + 1) > 4096)),
+        subtree=dict(loads=subtree, sector_bytes=32 * subtree,
+                     written=table, read=0, launches=1))
+
+
+def _per_warp(x, jobs_per_warp: int):
+    """The largest of each warp's ``jobs_per_warp`` consecutive values."""
+    import torch
+
+    n = -(-x.shape[0] // jobs_per_warp) * jobs_per_warp
+    pad = torch.zeros(n, dtype=x.dtype)
+    pad[:x.shape[0]] = x
+    return pad.view(-1, jobs_per_warp).amax(1)
+
+
+def dp_slots(i0, jmax, walk, bl, flip, L1: int, L2: int, runs: int = 40,
+             strip: int = 4, thread_cells: int = 128) -> dict:
+    """K11a's work on one bucket of (L1, L2) jobs, in the order given
+    ((J,) int64 CPU tensors: i0 = clamp(rlen, 0, L1), jmax = min(glen,
+    L2), the walk's steps, the block's length and the Cigar flip), under
+    each candidate form:
+
+      warp     a warp a job (the first form, a stripe for row 0 too): 32
+               lanes x stripes of rows x the
+               diagonals 0..i0 + jmax; chain: the diagonals (each three
+               shuffles and a cell);
+      thread   a thread a job, the cells one after the other; a warp runs
+               as long as its largest job; in the order given and sorted by
+               cells (``_sorted``);
+      strip    a thread a job sweeping ``strip`` rows side by side, each a
+               column behind the one above: ceil(i0 / strip) strips of
+               jmax + strip - 1 steps, ``strip`` cell slots a step, plus row
+               0's jmax + 1 border cells; chain: the steps;
+      tile4/8  a tile of 4 or 8 lanes a job, the job's own rows striped over
+               the tile, swept by diagonals: chain the diagonals (each a
+               shuffle and a cell);
+      warp1    the package's: the warp form without a stripe for row 0
+               (its cells are borders, which no walk reads), stripes of rows
+               1..L1;
+      split    jobs of more than ``thread_cells`` cells in warp1, the rest
+               in strip, in the order given (largest first, the order that
+               keeps a warp of threads' jobs of a size).
+
+    ``slots`` are the cell slots the warps issue (32 a warp-step), ``chain``
+    the longest chain of dependent steps of one warp, ``walk_chain`` the
+    longest walk a warp waits on and ``walk_issued`` the walk steps its
+    warps issue; ``entries`` the block entries written and ``read_back``
+    those read back from device memory (the first warp form flips a block in
+    place; the new forms write each entry once)."""
+    import torch
+
+    ok = jmax >= 0
+    cells = torch.where(ok, (i0 + 1) * (jmax + 1), 0)
+    diags = torch.where(ok, i0 + jmax + 1, 0)
+    J = i0.shape[0]
+    swaps = torch.where(flip, 2 * (bl // 2), 0)
+    q = (torch.quantile(cells[ok].double(), torch.tensor([0.5, 0.9],
+                                                         dtype=torch.float64))
+         if bool(ok.any()) else torch.zeros(2))
+    out = dict(L1=L1, L2=L2, jobs=J, cells=int(cells.sum()),
+               cells_median=float(q[0]), cells_p90=float(q[1]),
+               cells_max=int(cells.max()) if J else 0,
+               jobs_over_128=int((cells > 128).sum()),
+               cells_over_128=int(cells[cells > 128].sum()),
+               walk_steps=int(walk.sum()))
+    stripes = 2 if L1 + 1 <= 64 else 4
+    out["warp"] = dict(
+        warps=J, slots=32 * stripes * int(diags.sum()),
+        chain=int(diags.max()) if J else 0,
+        walk_chain=int(walk.max()) if J else 0,
+        walk_issued=int(walk.sum()),
+        entries=J * (runs + 2) + int(swaps.sum()),
+        read_back=int(swaps.sum()))
+    stripes1 = -(-L1 // 32)
+    out["warp1"] = dict(
+        warps=J, slots=32 * stripes1 * int(diags.sum()),
+        chain=int(diags.max()) if J else 0,
+        walk_chain=int(walk.max()) if J else 0,
+        walk_issued=int(walk.sum()), entries=J * (runs + 2), read_back=0)
+    strips = -(-i0 // strip)
+    steps = torch.where(ok & (i0 >= 1) & (jmax >= 1),
+                        strips * (jmax + strip - 1), 0)
+    strip_slots = torch.where(ok, jmax + 1, 0) + strip * steps
+    big = cells > thread_cells
+    small = ~big
+    nsmall = int(small.sum())
+    sw = _per_warp(strip_slots[small], 32) if nsmall else strip_slots[:0]
+    out["split"] = dict(
+        warps=int(big.sum()) + -(-nsmall // 32), big=int(big.sum()),
+        slots=32 * stripes1 * int(diags[big].sum()) + 32 * int(sw.sum()),
+        chain=max(int(diags[big].max()) if big.any() else 0,
+                  int(_per_warp(steps[small], 32).max()) if nsmall else 0),
+        walk_chain=int(walk.max()) if J else 0,
+        walk_issued=int(walk[big].sum())
+        + (32 * int(_per_warp(walk[small], 32).sum()) if nsmall else 0),
+        entries=J * (runs + 2), read_back=0)
+    order = torch.argsort(cells, descending=True, stable=True)
+    for key, idx in (("", None), ("_sorted", order)):
+        def w(x, per=32):
+            return _per_warp(x if idx is None else x[idx], per)
+        out["thread" + key] = dict(
+            warps=-(-J // 32), slots=32 * int(w(cells).sum()),
+            chain=int(w(cells).max()) if J else 0,
+            walk_chain=int(w(walk).max()) if J else 0,
+            walk_issued=32 * int(w(walk).sum()),
+            entries=J * (runs + 2), read_back=0)
+        out["strip" + key] = dict(
+            warps=-(-J // 32), slots=32 * int(w(strip_slots).sum()),
+            chain=int(w(steps).max()) if J else 0,
+            walk_chain=int(w(walk).max()) if J else 0,
+            walk_issued=32 * int(w(walk).sum()),
+            entries=J * (runs + 2), read_back=0)
+        for T in (4, 8):
+            per = 32 // T
+            work = torch.where(ok, -(-(i0 + 1) // T) * diags, 0)
+            out[f"tile{T}{key}"] = dict(
+                warps=-(-J // per), slots=32 * int(w(work, per).sum()),
+                chain=int(w(diags, per).max()) if J else 0,
+                walk_chain=int(w(walk, per).max()) if J else 0,
+                walk_issued=32 * int(w(walk, per).sum()),
+                entries=J * (runs + 2), read_back=0)
+    return out
+
+
+def log_buckets(log, Lb: int):
+    """Phase B's non-empty DP buckets of one chunk's packed K10 output, as
+    the device engine forms them: (L1, L2, jk, jt) each, the jobs in the
+    order ``_job_bucket_sort`` gives."""
+    import numpy as np
+
+    from bwt_tpu_torch.models import aligner
+    from bwt_tpu_torch.ops import automaton as au
+
+    v = au.align_unpack(log)
+    G = aligner._DP_GRAN
+    NL2 = -(-(Lb + 10) // G)
+    order, counts = aligner._job_bucket_sort(
+        v["mode"], v["lp"], v["ovf"], v["kinds"], v["rlens"], v["glens"],
+        NB=-(-Lb // G) * NL2, NL2=NL2)
+    counts = counts.cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    for b in np.nonzero(counts)[0].tolist():
+        l1, l2 = divmod(b, NL2)
+        jk, jt = aligner._bucket_ids(order, int(offs[b]), int(counts[b]))
+        yield G * (l1 + 1), G * (l2 + 1), jk, jt
+
+
+def bucket_slots(log, bank, genome, jk, jt, L1: int, L2: int) -> dict:
+    """:func:`dp_slots` of one bucket, its walks and blocks from the plain
+    stitch (``dp_stitch_plain``, ``dp_blocks``) on the log's device."""
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+
+    fields, is_sw = dw._log_jobs(log, jk, jt)
+    P, ops = dw.dp_stitch_plain(bank, genome, *fields, L1=L1, L2=L2)
+    bl = dw.dp_blocks(*dw.unpack(P), ~is_sw)[2]
+    return dp_slots(fields[2].long().clamp(0, L1).cpu(),
+                    fields[5].long().clamp(max=L2).cpu(),
+                    (ops != 3).sum(1).cpu(), bl.long().cpu(),
+                    (~is_sw).cpu(), L1, L2, runs=dw.RLE_R)
+
+
+def cpu_slots(seed=0, bits=25, nsub=1 << 15, nindel=4096):
+    """Part A of the K5 and K11a redesigns on the CPU, before any kernel:
+    the 2^``bits``-base genome and index of phases 3-4 (from ``seed``),
+    K5's loads at k = 12 under each schedule (:func:`seed_loads`), then a
+    chunk of ``nsub`` substitution reads and one of ``nindel`` indel reads
+    (phase 5's kinds) through the plain aligner automaton, and every
+    bucket of their logs through :func:`bucket_slots`.  One JSON line a
+    table and a bucket.
+
+        python3 -c 'import chip_smoke; chip_smoke.cpu_slots()'
+
+    About 6 GiB and 10 minutes on the CPU."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import automaton as au
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    t0 = time.perf_counter()
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cpu")
+    print(json.dumps(dict(seed_rows=seed_loads(fmi, SEED_K),
+                          s=round(time.perf_counter() - t0, 1))), flush=True)
+    svc = QueryService(fmi, codes)
+    table = svc.seed
+    _, sub = mutated_reads(rng, codes, nsub)
+    _, ind = indel_reads(rng, codes, nindel)
+    for what, reads in (("subst", sub), ("indel", ind)):
+        t0 = time.perf_counter()
+        chunk = QueryService(fmi, svc.genome_dev, svc.config)
+        chunk.add_reads_batch(reads, with_revcomp=True)
+        bank8 = chunk.bank8
+        Bp = bank8.shape[0] // 2
+        lens = np.zeros(Bp, np.int32)
+        lens[:len(reads)] = [len(r) for r in reads]
+        log = au.align_automaton_packed(
+            fmi, bank8, torch.from_numpy(lens), torch.arange(Bp) < len(reads),
+            fmi.length, table.rows, anchor_len=svc.config.anchor_len,
+            resolve=chunk._has_n, seed_k=table.k)
+        for L1, L2, jk, jt in log_buckets(log, bank8.shape[1]):
+            line = bucket_slots(log, chunk.bank, chunk.genome_dev, jk, jt,
+                                L1, L2)
+            print(json.dumps(dict(reads=what, n=len(reads), **line,
+                                  s=round(time.perf_counter() - t0, 1))),
+                  flush=True)
+
+
 def registers_of(fragment: str, report: str | None = None) -> list[int]:
     """The registers of each compiled kernel whose name holds ``fragment``,
     from a compiler report (phase 1's by default)."""
@@ -1966,9 +2343,11 @@ def phase_align_kernels(fmi, svc, chunks, tag, latency_us,
                         variants) -> list:
     """Phase 7, the aligner's kernels: K10 on one chunk of phase 5's
     substitution reads and one of its indel reads, K11a on every bucket of
-    the substitution chunk's log and K11b on its composed lanes, each
-    against its plain version on the card, bit-equal, and timed beside its
-    bound, K10 also at the tiles of ``variants`` (:func:`time_by_tile`).
+    both chunks' logs and K11b on the substitution chunk's composed lanes,
+    each against its plain version on the card, bit-equal, and timed
+    beside its bound, K10 also at the tiles of ``variants``
+    (:func:`time_by_tile`), K11a also a bucket at a time beside the
+    bucket's Part A counts (:func:`bucket_slots`).
     K10's bound counts what the chunk's reads needed, from the plain
     version's rounds, as K9's does; K11a's the cells of each job's own
     matrix and its walk (one operation a step), and its bytes the job's ids
@@ -1978,7 +2357,6 @@ def phase_align_kernels(fmi, svc, chunks, tag, latency_us,
     import numpy as np
     import torch
 
-    from bwt_tpu_torch.models import aligner
     from bwt_tpu_torch.models.batch_exec import QueryService
     from bwt_tpu_torch.ops import automaton as au
     from bwt_tpu_torch.ops import compose as cmp
@@ -2066,46 +2444,47 @@ def phase_align_kernels(fmi, svc, chunks, tag, latency_us,
               f"{tag}", flush=True)
 
     # K11a on every bucket of each chunk's log, then K11b on the
-    # substitution chunk's
+    # substitution chunk's.  Each bucket is timed beside its Part A counts
+    # (bucket_slots)
     for what, _ in reversed(chunks):
         chunk, log = logs[what]
         v = au.align_unpack(log)
         bank, genome = chunk.bank, chunk.genome_dev
         Bp = au.align_lanes(log)
-        Lb = chunk.bank8.shape[1]
-        G = aligner._DP_GRAN
-        NL2 = -(-(Lb + 10) // G)
-        order, counts = aligner._job_bucket_sort(
-            v["mode"], v["lp"], v["ovf"], v["kinds"], v["rlens"],
-            v["glens"], NB=-(-Lb // G) * NL2, NL2=NL2)
-        counts = counts.cpu().numpy()
-        offs = np.concatenate([[0], np.cumsum(counts)])
         got, want, scratch = (dw.log_acc(Bp, dev) for _ in range(3))
         ms = plain_ms = 0.0
         jobs = cells = steps = nbytes = 0
-        shapes = []
-        for b in np.nonzero(counts)[0].tolist():
-            l1, l2 = divmod(b, NL2)
-            L1, L2 = G * (l1 + 1), G * (l2 + 1)
-            jk, jt = aligner._bucket_ids(order, int(offs[b]), int(counts[b]))
+        shapes, buckets = [], []
+        for L1, L2, jk, jt in log_buckets(log, chunk.bank8.shape[1]):
             dw.dp_log_stitch(log, bank, genome, jk, jt, got, L1=L1, L2=L2)
             _, t = _event_ms(lambda: dw.dp_log_stitch(
                 log, bank, genome, jk, jt, want, L1=L1, L2=L2, plain=True))
             plain_ms += t
-            ms += cuda_ms(lambda: dw.dp_log_stitch(
+            t_pkg = cuda_ms(lambda: dw.dp_log_stitch(
                 log, bank, genome, jk, jt, scratch, L1=L1, L2=L2), 20,
                 ahead=True)
+            ms += t_pkg
+            slots = bucket_slots(log, bank, genome, jk, jt, L1, L2)
             fields, _ = dw._log_jobs(log, jk, jt)
-            _, ops = dw.dp_stitch_plain(bank, genome, *fields, L1=L1, L2=L2)
             i0 = fields[2].long().clamp(0, L1)
             jmax = fields[5].long().clamp(max=L2)
             J = jk.shape[0]
             jobs += J
-            cells += int(((i0 + 1) * (jmax + 1).clamp(min=0)).sum())
-            steps += int((ops != 3).sum())
+            cells += slots["cells"]
+            steps += slots["walk_steps"]
             nbytes += 4 * (J * (2 + 6 + dw.BLOCK_W + 3) + int(i0.sum())
                            + int(jmax.clamp(min=0).sum()))
             shapes.append(f"{L1}x{L2}: {J}")
+            buckets.append(dict(L1=L1, L2=L2, jobs=J, ms=t_pkg, slots=slots))
+            print(f"phase 7 K11a bucket {L1}x{L2} of the {what} chunk: {J} "
+                  f"jobs, {slots['cells']} cells, {t_pkg:.4f} ms; cell slots "
+                  f"issued (longest chain, diagonals): the first warp form "
+                  f"{slots['warp']['slots']} ({slots['warp']['chain']}), "
+                  f"this one, without a stripe for row 0, "
+                  f"{slots['warp1']['slots']} ({slots['warp1']['chain']}); "
+                  f"block entries read back: that form's "
+                  f"{slots['warp']['read_back']}, this one's 0 {tag}",
+                  flush=True)
         err = _max_abs_diff([got], [want])
         require(torch.equal(got, want), f"K11a differs from its plain "
                                         f"version on the buckets of a "
@@ -2114,17 +2493,19 @@ def phase_align_kernels(fmi, svc, chunks, tag, latency_us,
         regs = registers_of("LogForm")
         rows.append(dict(kernel="dp_log_stitch", case=f"the buckets of a "
                          f"chunk of phase 5, {what}", shape="; ".join(shapes),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, jobs=jobs,
-                         cells=cells, walk_steps=steps, registers=regs,
-                         buckets=len(shapes), **bound))
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         jobs=jobs, cells=cells,
+                         walk_steps=steps, registers=regs,
+                         buckets=buckets, **bound))
         print(f"phase 7 K11a dp_log_stitch on the {len(shapes)} buckets of "
               f"the {what} chunk (jobs by padded shape {shapes}): the "
               f"accumulators bit-equal to the plain version's (tolerance 0, "
               f"max |d| {err}), kernels {ms:.4f} ms in all, plain "
-              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
-              f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['ops']} "
-              f"operations: {cells} cells, {steps} walk steps); registers of "
-              f"the log form's kernels {regs} {tag}", flush=True)
+              f"{plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bytes']} bytes, {bound['ops']} operations: {cells} "
+              f"cells, {steps} walk steps); registers of the log form's "
+              f"kernels {regs} {tag}", flush=True)
 
     comp = cmp.compose(log, got)
     want_c, plain_c = _event_ms(lambda: cmp.compose_plain(log, got))
@@ -2295,6 +2676,15 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
             f"{service.SERVICE_LAUNCHES}, K3, K4, K6, locate, anchor_scan, "
             f"fill, stitch {others()}")
     require(dstats["capped"] == 0, f"{dstats['capped']} reads capped")
+    # the device engine's wall, untraced: this run and RNA_WALLS - 1 more on
+    # the same reads, and their median
+    walls = [dt]
+    for _ in range(RNA_WALLS - 1):
+        t0 = time.perf_counter()
+        again = rnaseq.rna_seq(fmi, reads, service=svc)
+        walls.append(time.perf_counter() - t0)
+        require(np.array_equal(again, pos), "rna_seq changed on a rerun")
+    wall = float(np.median(walls))
     require(pos.shape == (nreads,) and bool((pos >= -1).all())
             and bool((pos <= len(codes_np)).all()),
             "rna_seq returned a position outside [-1, n]")
@@ -2383,7 +2773,9 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
     rest = dt_host - clocks["dispatch"] - clocks["replies"] - stats["t_gen"]
     print(f"phase 10 rna_seq {nreads} x {read_len} bp, one base complemented "
           f"(the self-benchmark's 1 M reads cut to 2^16), engine 'auto': "
-          f"{nreads / dt:.1f} reads/s ({dt:.4f} s), {k9} K9 launches for "
+          f"{nreads / dt:.1f} reads/s ({dt:.4f} s; the median of "
+          f"{RNA_WALLS} untraced runs {wall:.4f} s, each "
+          f"{[round(w, 4) for w in walls]}), {k9} K9 launches for "
           f"{nchunks} chunks and no other kernel, the longest read "
           f"{dstats['max_iters']} iterations, 256 unmutated reads report "
           f"their origin, {at_origin:.4f} of the {int(tail.sum())} reads "
@@ -2450,12 +2842,50 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
           f"{nwindows / dt_isa:.1f} windows/s ({dt_isa:.3f} s), K6 launches "
           f"1, service kernel launches 1 {tag}", flush=True)
     return reads, dict(
-        n=nreads, s=dt, per_s=nreads / dt, at_origin=at_origin,
+        n=nreads, s=dt, per_s=nreads / dt, walls_s=walls, median_s=wall,
+        at_origin=at_origin,
         automaton_launches=k9, device_stats=dstats, host_s=dt_host,
         host_per_s=nreads / dt_host, launches=launches, stats=stats,
         clocks=clocks, cpu_subset_s=cpu_s, forced_capped=ncapped, k9=k9_row,
         no_isa_s=dt_bare, unc_launches=unc, isa_launches=isa,
         isa_svc_launches=service.SERVICE_LAUNCHES)
+
+
+def rna_walls(n=RNA_WALLS, seed=0, nreads=1 << 16, read_len=50) -> dict:
+    """rna_seq's device-engine wall alone, on phase 10's input (the
+    2^25-base genome from ``seed``, sa_rate 4, 2^16 reads of 50 bp with one
+    base complemented), ``n`` untraced runs after two warm-ups, and their
+    median; nothing else runs in the process, and it uses only the entry
+    points every earlier tree of the port has, so that the same script
+    times two trees in one call:
+
+        python3 chip_smoke.py --rna-walls 7"""
+    import numpy as np
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << 25).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cuda")
+    starts, reads, _ = complemented_reads(rng, codes, nreads, read_len)
+    svc = QueryService(fmi)
+    exact = codes[np.add.outer(starts[:256], np.arange(read_len))]
+    require(np.array_equal(rnaseq.rna_seq(fmi, exact, service=svc),
+                           starts[:256]),
+            "an unmutated read does not report its origin")
+    first = rnaseq.rna_seq(fmi, reads, service=svc)
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        pos = rnaseq.rna_seq(fmi, reads, service=svc)
+        walls.append(time.perf_counter() - t0)
+        require(np.array_equal(pos, first), "rna_seq changed on a rerun")
+    out = dict(tree=str(ROOT), n=n, walls_s=walls,
+               median_s=float(np.median(walls)), card=card_line())
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
@@ -2619,6 +3049,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON to this file")
+    ap.add_argument("--rna-walls", type=int, default=0, metavar="N",
+                    help="only time rna_seq's device engine N times "
+                         "(rna_walls) and exit")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2627,6 +3060,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.rna_walls:
+        rna_walls(args.rna_walls, seed=args.seed)
+        return 0
     from bwt_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda")
@@ -2651,8 +3087,10 @@ def main(argv=None) -> int:
             f"stores): {frames}")
     print(f"phase 1 nvcc build of {len(_kernels.sources())} source(s) -> "
           f"{lib.relative_to(ROOT)} in {build_s:.3f} s; {len(regs)} kernels, "
-          f"registers {sorted(map(int, regs))}, no stack frame, no spills "
-          f"{tag}", flush=True)
+          f"registers {sorted(map(int, regs))}, no stack frame, no spills; "
+          f"K5 seed_rows (by levels expanded) "
+          f"{registers_of('seed_rows_kernel')}, K11a (warp, block and tall "
+          f"forms) {registers_of('LogForm')} {tag}", flush=True)
     variants = finish_tile_builds(tile_builds)
     print(f"phase 1 the automatons K10 and K9 built apart at tiles "
           f"{sorted(variants)} to be timed beside the package's, in "

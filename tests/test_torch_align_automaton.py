@@ -469,6 +469,45 @@ def test_log_stitch_and_compose_match_bwt_tpu(env, logs):  # noqa: F811
     assert np.array_equal(rows[:, 4:].numpy(), np.asarray(fc8))
 
 
+@pytest.mark.parametrize("L1,L2", [(32, 32), (32, 64), (64, 64)])
+def test_log_stitch_edge_jobs_match_bwt_tpu(L1, L2):
+    """The plain log stitch against bwt_tpu's _dp_scatter_bucket (its Pallas
+    kernel in interpret mode) on chip_smoke.log_edge_jobs: rlen 0, glen < 0
+    and 0, rlen = L1 (the last row), clamped slices, more runs than kept
+    (``over``), the longest block (runs + 1: a walk ends on row or column
+    0, so never both residuals), two head stitches on one read; and the same
+    accumulators with the jobs in another order."""
+    import chip_smoke
+
+    log, bank, genome, jk, jt = chip_smoke.log_edge_jobs(
+        np.random.default_rng(L1 + L2))
+    Bp = au.align_lanes(log)
+    v = au.align_unpack(log)
+    acc = dpw.log_acc(Bp, "cpu")
+    dpw.dp_log_stitch(log, bank, genome, jk, jt, acc, L1=L1, L2=L2)
+    W = dpw.BLOCK_W
+    want = jaligner._dp_scatter_bucket(
+        jnp.asarray(bank.numpy()), jnp.asarray(genome.numpy()),
+        *(jnp.asarray(v[c].numpy()) for c in ("strand", "kinds", "roffs",
+                                              "rlens", "glens", "gstarts")),
+        jnp.asarray(jk.numpy()), jnp.asarray(jt.numpy()),
+        jnp.zeros((Bp, au.LOGN, W), jnp.int32),
+        jnp.zeros((Bp, au.LOGN), jnp.int32), jnp.zeros((Bp,), jnp.int32),
+        jnp.zeros((Bp,), jnp.int32), L1=L1, L2=L2, impl="pallas_interpret")
+    for got, w in zip(dpw.acc_unpack(acc), want):
+        assert np.array_equal(got.numpy(), np.asarray(w))
+    runs_oc, bl3, head_end, over = dpw.acc_unpack(acc)
+    bl = bl3[jk.long(), jt.long()]
+    assert int(bl.max()) == dpw.RLE_R + 1 or L1 == 32 and L2 == 32
+    assert bool(over.any()) or L2 == 32
+    assert int((bl == 0).sum()) > 0  # rlen 0 and glen 0 jobs: empty blocks
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(len(jk)))
+    again = dpw.log_acc(Bp, "cpu")
+    dpw.dp_log_stitch(log, bank, genome, jk[perm].contiguous(),
+                      jt[perm].contiguous(), again, L1=L1, L2=L2)
+    assert torch.equal(again, acc)
+
+
 def test_host_compose_matches_bwt_tpu(env, logs):  # noqa: F811
     """_assemble_logs (the redo path's compose) of both packages on the
     recorded log, over the reads' own lanes and over a subset named by

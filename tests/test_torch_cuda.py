@@ -31,7 +31,8 @@ from bwt_tpu_torch.models.batch_exec import QueryService, _service_core
 from bwt_tpu_torch.ops import dp_wavefront, search, service
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import mixed_reads, service_lanes, stitch_jobs  # noqa: E402
+from chip_smoke import (log_edge_jobs, mixed_reads, service_lanes,  # noqa: E402
+                        stitch_jobs)
 
 pytestmark = pytest.mark.cuda
 
@@ -497,7 +498,7 @@ def test_exact_path_on_card_matches_cpu(card):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k", [1, 4, 7])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 12])
 def test_seed_rows_kernel_matches_plain(search_env, k):
     _, fmi, _ = search_env
     launches = search.SEED_LAUNCHES
@@ -897,6 +898,33 @@ def test_log_stitch_and_compose_kernels_match_plain(card, monkeypatch):
         rows = compose.compose(log, got, K=K)
         assert torch.equal(rows, compose.compose(log, got, K=K, plain=True))
     assert compose.COMPOSE_LAUNCHES == launches + 2
+
+
+@pytest.mark.parametrize("L1,L2", [(32, 32), (32, 64), (32, 96), (64, 64),
+                                   (96, 96), (160, 96)])
+def test_log_stitch_edge_jobs_kernel_matches_plain(card, L1, L2):
+    """K11a on chip_smoke.log_edge_jobs (rlen 0, glen < 0 and 0, rlen = 32,
+    clamped slices, more runs than kept, two head stitches on one read)
+    against its plain version, in the warp form with one, two and four
+    stripes of rows 1..L1 and in the block form; and the same accumulators
+    with the jobs in another order."""
+    from bwt_tpu_torch.ops import automaton
+
+    log, bank, genome, jk, jt = (t.to(card) for t in log_edge_jobs(
+        np.random.default_rng(L1 * L2)))
+    Bp = automaton.align_lanes(log)
+    got, want = dp_wavefront.log_acc(Bp, card), dp_wavefront.log_acc(Bp, card)
+    launches = dp_wavefront.LOG_STITCH_LAUNCHES
+    dp_wavefront.dp_log_stitch(log, bank, genome, jk, jt, got, L1=L1, L2=L2)
+    dp_wavefront.dp_log_stitch(log, bank, genome, jk, jt, want, L1=L1, L2=L2,
+                               plain=True)
+    assert dp_wavefront.LOG_STITCH_LAUNCHES == launches + 1
+    assert torch.equal(got, want)
+    perm = torch.randperm(jk.shape[0], device=card)
+    again = dp_wavefront.log_acc(Bp, card)
+    dp_wavefront.dp_log_stitch(log, bank, genome, jk[perm].contiguous(),
+                               jt[perm].contiguous(), again, L1=L1, L2=L2)
+    assert torch.equal(again, want)
 
 
 def test_align_device_engine_on_card_matches_cpu(card, monkeypatch):

@@ -50,6 +50,24 @@ def _genome(n, kind):
     return np.random.default_rng(n).integers(0, 4, n).astype(np.uint8)
 
 
+@pytest.mark.parametrize("rate", [1, 4])
+@pytest.mark.parametrize("n,kind", [(4096, "rand"), (512, "zeros"),
+                                    (3001, "rand")])
+def test_seed_levels_match_bwt_tpu_tables(n, kind, rate):
+    """Each level of the seed table's level order, grown from the one-
+    character states by _seed_children (child c of row p at p + c * 4^t),
+    equals bwt_tpu's whole table at that depth: the schedule's every step,
+    on a random genome, an all-A one and one whose length is not a multiple
+    of 64."""
+    jfmi = bwt_tpu.build_index(_genome(n, kind), sa_sample_rate=rate)
+    tfmi = to_port(jfmi)
+    states = tsearch._seed_rows_plain(tfmi, 1)
+    for k in range(2, 7):
+        states = tsearch._seed_children(tfmi, states).reshape(-1, 6)
+        assert np.array_equal(states.numpy(),
+                              np.asarray(jsearch._seed_rows(jfmi, k))), k
+
+
 # -- codec -----------------------------------------------------------------
 
 

@@ -191,6 +191,34 @@ def test_seed_rows(env, k):
     assert tsearch.SEED_LAUNCHES == launches  # a CPU index launches nothing
 
 
+_SEED_GENOMES = {}
+
+
+def _seed_genome(kind, rate):
+    """A bwt_tpu index and its port, once a module: a random genome of 4,096
+    bases (64 whole buckets), an all-A genome (most keys die at their first
+    step) and a random genome of 3,001 bases (not a multiple of 64)."""
+    if (kind, rate) not in _SEED_GENOMES:
+        n = {"rand": 4096, "zeros": 512, "odd": 3001}[kind]
+        g = (np.zeros(n, np.uint8) if kind == "zeros" else
+             np.random.default_rng(n).integers(0, 4, n).astype(np.uint8))
+        jfmi = bwt_tpu.build_index(g, sa_sample_rate=rate)
+        _SEED_GENOMES[kind, rate] = (jfmi, to_port(jfmi))
+    return _SEED_GENOMES[kind, rate]
+
+
+@pytest.mark.parametrize("rate", [1, 4])
+@pytest.mark.parametrize("kind", ["rand", "zeros", "odd"])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_seed_rows_level_order(kind, rate, k):
+    """The plain build on K5's schedule (the first seed_prefix(k) characters
+    key by key, then the last levels in place, a parent's four children
+    from its two rows) against bwt_tpu's key-by-key fori_loop."""
+    jfmi, tfmi = _seed_genome(kind, rate)
+    assert tsearch.seed_prefix(k) == max(k - tsearch.SEED_FUSED, 1)
+    _eq(tsearch._seed_rows_plain(tfmi, k), jsearch._seed_rows(jfmi, k))
+
+
 def _seed_case(rng, codes, B=200, L=24, k=4):
     """test_seed.py's reads: lengths k..L, 70 % from the genome, 30 % with
     one substitution."""
