@@ -1,5 +1,6 @@
-// The fused service round as one launch: one thread per lane answers the
-// lane's FM-index request, whatever its opcode.
+// The fused service round as one launch: one thread per lane (a tile of
+// four on a small round) answers the lane's FM-index request, whatever its
+// opcode.
 //
 // Computes what bwt_tpu/models/batch_exec.py:_service_core computes (an
 // XLA program there: one lockstep LF loop under per-lane masks, the
@@ -15,39 +16,71 @@
 // (count of walks that overran, and B - the first such lane), zeroed by
 // the caller; an overrun lane's POS slot holds the row it walked from.
 //
-// What bounds it on the H100: a round is at most some 2^13 lanes, a
-// fifth of the threads the card holds, so the time is one lane's chain of
-// dependent 32-byte row loads from L2 (its search steps, then the walk,
-// then the window), and a warp runs as long as its longest lane.
+// What bounds it on the H100 (PERF.md).  A lane's work is a chain of
+// dependent 32-byte row loads from L2: its search steps (up to a read's
+// length), then its walk, then its window scan.  A warp runs the three one
+// after another, each until its longest lane is done, so its time is the
+// sum of the three longest, and the host engines' rounds are of two kinds:
+//   * the large ones (2^16 lanes and more: the first mms and mms_ext rounds
+//     of single_align, rna_seq's spliced rounds) fill the card, and more
+//     threads a lane only add to the load unit's work: one thread a lane;
+//   * the small ones (the later rounds, the indel reads, the escapes: at
+//     most kTileLanes lanes) leave most of the card idle, and there a
+//     warp's time is its chain.  They run a tile of kSmallTile threads a
+//     lane: each thread searches and walks as the lane (the same addresses,
+//     so the same sectors), a warp holds 8 lanes, whose longest search and
+//     walk are shorter than 32 lanes' are, and an ext lane's window is cut
+//     into kSmallTile slices that chain side by side from the sample above
+//     each (svc::TileSplit, as the automatons K9 and K10 scan theirs).
+// chip_smoke.py builds the kernel apart with the tile on every round and on
+// none (BWT_SERVICE_TILE) to time both beside it.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <type_traits>
 
 #include "service_lane.cuh"
+
+// 0: the tile from the round; else that tile on every round (builds made
+// apart to time the choice).
+#ifndef BWT_SERVICE_TILE
+#define BWT_SERVICE_TILE 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSmallTile = 4;
+constexpr int kTileLanes = 1 << 14;  // the largest round that tiles
 
 // The seven (B,) lane fields.
 struct Fields {
   const int *opc, *row, *off, *ln, *sp, *ep, *idx;
 };
 
-template <typename T>
+template <int kTile>
+using SplitOf = typename std::conditional<kTile == 1, svc::NoSplit,
+                                          svc::TileSplit<kTile>>::type;
+
+// Lane b is threads [b kTile, (b + 1) kTile) of the grid; the first of them
+// stores its columns.
+template <typename T, int kTile>
 __global__ void __launch_bounds__(kThreads)
 service_kernel(const T* __restrict__ bank, int R, int Lb, Fields f, int B,
                svc::Flags fl, fm::SeedRows seed, fm::Index ix,
                fm::Samples sa, fm::Isa isa, int* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int b = static_cast<int>(t / kTile);
+  if (b >= B) return;  // a whole tile: the block is a multiple of it
   const fm::Consts k = fm::load_consts(ix);
-  const svc::Cols c = svc::lane<T>(
+  const svc::Cols c = svc::lane<T, SplitOf<kTile>>(
       bank, R, Lb, __ldg(f.opc + b), __ldg(f.row + b), __ldg(f.off + b),
       __ldg(f.ln + b), __ldg(f.sp + b), __ldg(f.ep + b), __ldg(f.idx + b), fl,
       seed, ix, k, sa, isa);
+  if (kTile > 1 && svc::Tile<kTile>::rank() != 0) return;
   if (c.overrun) {
     fm::raise_flag(out + static_cast<size_t>(svc::kCols) * B, B, b);
   }
@@ -66,6 +99,38 @@ service_kernel(const T* __restrict__ bank, int R, int Lb, Fields f, int B,
   o[10 * Bs] = c.crank;
   o[11 * Bs] = c.wbest;
   o[12 * Bs] = c.wrow;
+}
+
+// The round's tile: kSmallTile for a round of at most kTileLanes lanes.
+int tile_of(int B) {
+  if (BWT_SERVICE_TILE != 0) return BWT_SERVICE_TILE;
+  return B <= kTileLanes ? kSmallTile : 1;
+}
+
+template <typename T, int kTile>
+int launch(const T* bank, int R, int Lb, Fields f, int B, svc::Flags fl,
+           fm::SeedRows seed, fm::Index ix, fm::Samples sa, fm::Isa isa,
+           int* out, cudaStream_t s) {
+  const long long threads = static_cast<long long>(B) * kTile;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  service_kernel<T, kTile><<<blocks, kThreads, 0, s>>>(
+      bank, R, Lb, f, B, fl, seed, ix, sa, isa, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_round(const T* bank, int R, int Lb, Fields f, int B,
+                 svc::Flags fl, fm::SeedRows seed, fm::Index ix,
+                 fm::Samples sa, fm::Isa isa, int* out, cudaStream_t s) {
+  switch (tile_of(B)) {
+    case 1:
+      return launch<T, 1>(bank, R, Lb, f, B, fl, seed, ix, sa, isa, out, s);
+    case kSmallTile:
+      return launch<T, kSmallTile>(bank, R, Lb, f, B, fl, seed, ix, sa, isa,
+                                   out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -91,18 +156,14 @@ extern "C" int service_launch(
   const fm::Isa isa{isa_samples, nisa, shift, length};
   const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
   const svc::Flags fl{resolve != 0, ext != 0, walk != 0};
-  const int blocks = (B + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 4) {
-    service_kernel<int><<<blocks, kThreads, 0, s>>>(
-        static_cast<const int*>(bank), R, Lb, f, B, fl, seed, ix, sa, isa,
-        out);
-  } else if (elem == 1) {
-    service_kernel<uint8_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(bank), R, Lb, f, B, fl, seed, ix, sa,
-        isa, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_round(static_cast<const int*>(bank), R, Lb, f, B, fl, seed,
+                        ix, sa, isa, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (elem == 1) {
+    return launch_round(static_cast<const uint8_t*>(bank), R, Lb, f, B, fl,
+                        seed, ix, sa, isa, out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

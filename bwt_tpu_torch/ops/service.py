@@ -8,7 +8,9 @@ own rules for N's, the initial interval and the match count), the SA walk
 its caller asks next, the inverse-SA window scan of the ``_ext`` opcodes
 and the C[c] + rank adjunct.  On the card the whole round is one launch of
 ``csrc/service.cu`` (K7, one thread a lane over the device functions of
-``csrc/fm_search.cuh``); on the CPU the same wrapper runs
+``csrc/fm_search.cuh``, a tile of four a lane on a round of at most 2^14
+lanes, which scans an ``_ext`` lane's window in slices); on the CPU the same
+wrapper runs
 :func:`service_round_plain`, the lockstep PyTorch version, which also runs
 on the card when asked (``plain=True``), to compare the two.
 
@@ -60,7 +62,7 @@ def consumes_pos(opc):
 
 def service_round_plain(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx, *,
                         resolve: bool, ext: bool = False, seed_rows=None,
-                        seed_k: int = 0) -> torch.Tensor:
+                        seed_k: int = 0, width: int = 1) -> torch.Tensor:
     """The plain PyTorch version of the service kernel, on any device:
     every lane steps through its characters together, finished lanes are
     masked out, and the loop stops once no lane is active.
@@ -77,11 +79,16 @@ def service_round_plain(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx, *,
     N among the first ``seed_k`` start from their table row.  Out-of-range
     operands read like ``jnp.take``: a bank row or a table key in [-n, 0)
     wraps and one further out reads the int32 minimum, a column clips.
-    Returns the (13, B) int32 result columns.  A walk from a row past the
-    suffix array raises RuntimeError (:func:`search.unc_sa_plain`)."""
+    ``width`` rehearses the kernel's tile on an ``ext`` round (a power of
+    two up to 32): the window cut into ``width`` slices of ceil(wwid /
+    width) positions, each chained from the sample above its own top, and
+    the least in-interval row taken over the slices; the columns are the
+    same at every width.  Returns the (13, B) int32 result columns.  A
+    walk from a row past the suffix array raises RuntimeError
+    (:func:`search.unc_sa_plain`)."""
     cols, over = service_round_flagged(
         fmi, bank, opc, row, off, ln, sp, ep, idx, resolve=resolve, ext=ext,
-        seed_rows=seed_rows, seed_k=seed_k)
+        seed_rows=seed_rows, seed_k=seed_k, width=width)
     if bool(over.any()):
         lane = int(over.to(torch.int8).argmax())
         raise search._overrun(int(cols[POS, lane]), fmi.length + 1,
@@ -91,7 +98,7 @@ def service_round_plain(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx, *,
 
 def service_round_flagged(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx,
                           *, resolve: bool, ext: bool = False,
-                          seed_rows=None, seed_k: int = 0):
+                          seed_rows=None, seed_k: int = 0, width: int = 1):
     """:func:`service_round_plain` without the raise: (columns, overran),
     (B,) bool, an overrunning lane's ``POS`` the row it walked from, as the
     kernel leaves it."""
@@ -209,16 +216,27 @@ def service_round_flagged(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx,
         wlo = torch.where(m_ext, sp - matched_mms - (ep + 3), sp)
         wwid = torch.where(m_ext, 2 * (ep + 3) + 1, ep)
         wwid = torch.where(any_ext, wwid.clamp(0, W), zeros)
-        rows = search.isa_window_plain(fmi, wlo, wwid, W=W)
         ilo = torch.where(m_ext, osp, start)[:, None]
         ihi = torch.where(m_ext, oep, end)[:, None]
-        valid = (rows >= ilo) & (rows < ihi) & (rows >= 0)
         # the minimal in-interval row is the first entry the reference's
-        # sequential SA-row scan would accept
-        j = torch.where(valid, rows, _I32_MAX).argmin(dim=1)
-        has = valid.gather(1, j[:, None]).squeeze(1) & any_ext
-        wbest = torch.where(has, wlo + j.to(torch.int32), -1)
-        wrow = torch.where(has, rows.gather(1, j[:, None]).squeeze(1), -1)
+        # sequential SA-row scan would accept; the rows of distinct
+        # positions are distinct, so the least over the slices is it
+        size = (wwid + width - 1) // width
+        best = torch.full_like(opc, _I32_MAX)
+        best_j = zeros
+        for q in range(_width(width)):
+            lo = q * size
+            rows = search.isa_window_plain(
+                fmi, wlo + lo, torch.minimum(size, wwid - lo).clamp(min=0),
+                W=W)
+            valid = (rows >= ilo) & (rows < ihi) & (rows >= 0)
+            least, j = torch.where(valid, rows, _I32_MAX).min(dim=1)
+            take = least < best
+            best = torch.where(take, least, best)
+            best_j = torch.where(take, lo + j.to(torch.int32), best_j)
+        has = (best != _I32_MAX) & any_ext
+        wbest = torch.where(has, wlo + best_j, -1)
+        wrow = torch.where(has, best, -1)
     else:
         wbest = wrow = torch.full_like(opc, -1)
 
@@ -233,12 +251,19 @@ def service_round_flagged(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx,
                         crank, wbest, wrow]), over
 
 
+def _width(width: int) -> int:
+    if width not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"width {width} is not a power of two up to 32")
+    return width
+
+
 _BANK_ELEM = {torch.int32: 4, torch.uint8: 1}
 
 
 def _service_kernel(fmi: FMIndex, bank, fields, *, resolve, ext, seed_rows,
                     seed_k, walk) -> torch.Tensor:
-    """Launch ``csrc/service.cu`` (K7): one thread a lane.  Returns the
+    """Launch ``csrc/service.cu`` (K7): one thread a lane, a tile of
+    threads on a small round (the kernel picks).  Returns the
     flat (13 B + 2,) output, columns then flag, without synchronising."""
     global SERVICE_LAUNCHES
     search._check_index(fmi)

@@ -494,6 +494,46 @@ def stitch_jobs(rng, B, L1, L2, R=64, G=1 << 16):
     return bank, genome, f
 
 
+def compose_edge_rows(rng, Bp):
+    """A random log (an aligner automaton's packed output over ``Bp``
+    reads) and the stitches' accumulators that push the compose to its
+    edges: log pointers past the 16 slots, every kind of entry, blocks of
+    0 to BLOCK_W + 3 entries (past the block: its last entry again, and
+    streams past F2), runs of every op with counts up to 40,000 (merged
+    counts past 254 and past int16), more runs than K and than 8, and every
+    meta bit.  Returns (log, acc), CPU int32 tensors."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.ops import automaton as au
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+
+    W, N = dw.BLOCK_W, au.LOGN
+    log = np.zeros(au.align_flag_offset(Bp) + 4, np.int32)
+    cols = dict(mode=rng.integers(0, 3, Bp), curpos=rng.integers(-5, 1 << 25, Bp),
+                strand=rng.integers(0, 2, Bp), lp=rng.integers(0, N + 5, Bp),
+                ovf=rng.integers(0, 2, Bp), capped=rng.integers(0, 2, Bp),
+                iters=rng.integers(0, 9, Bp))
+    for k, c in enumerate(au.ALIGN_COLS):
+        log[k * Bp:(k + 1) * Bp] = cols[c]
+    base = len(au.ALIGN_COLS) * Bp
+    kinds = rng.integers(1, 6, (Bp, N))
+    glens = np.where(rng.random((Bp, N)) < 0.1,
+                     rng.integers(0, 30000, (Bp, N)),
+                     rng.integers(0, 300, (Bp, N)))
+    for k, x in ((0, kinds), (3, glens)):
+        log[base + k * N * Bp:base + (k + 1) * N * Bp] = x.reshape(-1)
+    ops = rng.integers(0, 3, (Bp, N, W))
+    cnt = np.where(rng.random((Bp, N, W)) < 0.05,
+                   rng.integers(0, 40000, (Bp, N, W)),
+                   rng.integers(0, 40, (Bp, N, W)))
+    acc = np.concatenate([
+        (((ops + 2) << 24) | cnt).reshape(-1),
+        rng.integers(0, W + 4, (Bp, N)).reshape(-1),
+        rng.integers(-5, 1 << 20, Bp), rng.integers(0, 2, Bp)]).astype(np.int32)
+    return torch.from_numpy(log), torch.from_numpy(acc)
+
+
 def log_edge_jobs(rng, Bp=32, Lb=80, G=4096):
     """Phase B's stitch jobs made by hand in a packed K10 output of ``Bp``
     reads: (log, bank (2 Bp, Lb), genome (G,), jk, jt), int32 CPU tensors.
@@ -874,15 +914,14 @@ def phase_align(fmi, codes_np, rng, nreads, tag, nindel=4096, subset=512,
         runs[what] = dict(res=res, s=dt, counts=counts, stats=st, n=len(batch))
 
     # the host engine on the same reads; its service rounds are kept for
-    # phase 7, which times K7 on the largest ones
-    recorded, launch = [], service.service_round_packed
-
-    def recording(fmi_, bank, *fields, **kw):
-        recorded.append((bank, fields, kw))
-        return launch(fmi_, bank, *fields, **kw)
-
+    # phase 7, which times K7 on them (pick_rounds)
+    recorded, launch = {"subst": [], "indel": []}, service.service_round_packed
     host = {}
     for what, batch in (("subst", reads), ("indel", ireads)):
+        def recording(fmi_, bank, *fields, what=what, **kw):
+            recorded[what].append((bank, fields, kw))
+            return launch(fmi_, bank, *fields, **kw)
+
         service.service_round_packed = recording
         try:
             res, dt, counts, st = drive(what, batch, engine="host")
@@ -985,8 +1024,9 @@ def phase_align(fmi, codes_np, rng, nreads, tag, nindel=4096, subset=512,
           f"({plain_s:.3f} s) and on a CPU copy of the index ({cpu_s:.3f} "
           f"s); at a forced cap of 4 iterations {ncapped} of {forced} reads "
           f"capped and re-run on the host, results equal {tag}", flush=True)
-    by_size = sorted(recorded, key=lambda r: -r[1][0].shape[0])
-    picked = [by_size[0]] + [r for r in by_size if r[2]["ext"]][:1]
+    picked = (pick_rounds("single_align's substitution reads",
+                          recorded["subst"])
+              + pick_rounds("single_align's indel reads", recorded["indel"]))
     s, i = runs["subst"], runs["indel"]
     out = dict(
         n=nreads, s=s["s"], per_s=nreads / s["s"], at_true=s["at_true"],
@@ -1482,11 +1522,103 @@ def _service_bound(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
                 walk_steps=w["walk"], window_steps=w["window"])
 
 
-def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
-                          nlanes=1 << 13, nwindows=1 << 16):
-    """Phase 7, the executor's kernels: the service round (K7), the
-    inverse-SA window (K6) and the seed-table build (K5) against their
-    plain versions on the card, bit-equal, each timed beside its bound."""
+# csrc/service.cu's kTileLanes and kSmallTile: a round of at most this many
+# lanes runs a tile of four threads a lane
+SERVICE_TILE_LANES = 1 << 14
+SERVICE_SMALL_TILE = 4
+
+
+def pick_rounds(driver, rounds) -> list:
+    """The service rounds of one host-engine run (``(bank, fields, kw)``
+    each, in order) that phase 7 times K7 on: the largest, the largest ext
+    round, and the largest round that the kernel tiles, each once, named
+    by ``driver``, its index in the run and its lanes."""
+    picked = {}
+    lanes = [r[1][0].shape[0] for r in rounds]
+    cands = (max(range(len(rounds)), key=lanes.__getitem__),
+             max((k for k in range(len(rounds)) if rounds[k][2]["ext"]),
+                 key=lanes.__getitem__, default=None),
+             max((k for k in range(len(rounds))
+                  if lanes[k] <= SERVICE_TILE_LANES),
+                 key=lanes.__getitem__, default=None))
+    for k in cands:
+        if k is not None and k not in picked:
+            bank, fields, kw = rounds[k]
+            picked[k] = (f"round {k} of {driver} (host engine, "
+                         f"{'ext' if kw['ext'] else 'no ext'}, "
+                         f"{fields[0].shape[0]} lanes)", bank, fields,
+                         {key: v for key, v in kw.items() if key != "plain"})
+    return list(picked.values())
+
+
+def service_case(fmi, case, bank, fields, kw, forms, latency_us, tag) -> dict:
+    """Phase 7's K7 on one round: the kernel in the package's form and in
+    each of ``forms`` ({name: (library, report)}, :func:`finish_tile_builds`)
+    against its plain version on the card, bit-equal in all 13 columns and
+    the flag, each timed by CUDA events beside the round's bound and its
+    Part A chains (:func:`service_chains`) at ``latency_us`` a load."""
+    import torch
+
+    from bwt_tpu_torch.ops import service as sv
+
+    kw = dict(kw, plain=False)
+    B = fields[0].shape[0]
+    want, plain_ms = _event_ms(lambda: sv.service_round_packed(
+        fmi, bank, *fields, **dict(kw, plain=True)))
+
+    def run():
+        return sv.service_round_packed(fmi, bank, *fields, **kw)
+
+    by_form, err = {}, 0
+    for name, (lib, _) in [("package", (None, None))] + list(forms.items()):
+        with automaton_tile(lib, SERVICE_LAUNCHERS):
+            got = run()
+            e = _max_abs_diff([got], [want])
+            same = got.shape == want.shape and torch.equal(got, want)
+            bad = [] if same else sorted({int(c) for c in (
+                torch.nonzero(got != want)[:, 0] // max(B, 1)).tolist()})
+            require(same, f"the service kernel ({name}) differs from its "
+                          f"plain version ({case}) in columns {bad} (13: the "
+                          f"flag): max |d| {e}")
+            by_form[name] = cuda_ms(run, 20, ahead=True)
+        err = max(err, e)
+    cols = want[:-2].view(sv.NCOLS, B)
+    seed_k = kw.get("seed_k", 0) if kw.get("seed_rows") is not None else 0
+    bound = _service_bound(fmi, bank, fields, cols, ext=kw["ext"],
+                           walk=kw["walk"], seed_k=seed_k)
+    chains = service_chains(fmi, fields, cols, ext=kw["ext"], walk=kw["walk"],
+                            seed_k=seed_k, tiles=(1, SERVICE_SMALL_TILE))
+    tile = SERVICE_SMALL_TILE if B <= SERVICE_TILE_LANES else 1
+    longest = chains["tiles"][tile]["longest"]
+    row = dict(kernel="service", case=case,
+               shape=f"B={B} Lb={bank.shape[1]} {bank.dtype}",
+               max_abs_err=err, ms=by_form["package"], plain_ms=plain_ms,
+               forms_ms=by_form, tile=tile, chains=chains,
+               chain_ms=longest * latency_us / 1e3, **bound)
+    print(f"phase 7 service {case} {row['shape']}: bit-equal in every form "
+          f"(tolerance 0, max |d| {err}), kernel {by_form['package']:.4f} ms "
+          f"at tile {tile} (the forms built apart: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in by_form.items() if k != "package")
+          + f"), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['ops']} "
+          f"operations: {bound['search_steps']} search, "
+          f"{bound['walk_steps']} walk and {bound['window_steps']} window "
+          f"steps); the longest warp's chain of dependent loads at tile 1 / "
+          f"{SERVICE_SMALL_TILE}: {chains['tiles'][1]['longest']} / "
+          f"{chains['tiles'][SERVICE_SMALL_TILE]['longest']} loads, "
+          f"{row['chain_ms']:.4f} ms at tile {tile} at {latency_us:.4f} us a "
+          f"load {tag}", flush=True)
+    return row
+
+
+def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag, forms,
+                          latency_us, nlanes=1 << 13, nwindows=1 << 16):
+    """Phase 7, the executor's kernels: the service round (K7) on fuzzed
+    rounds and on the host engine's recorded ones (``recorded``, cases of
+    :func:`pick_rounds`), in the package's form and in each of ``forms``
+    (:func:`service_case`), the inverse-SA window (K6) and the seed-table
+    build (K5) against their plain versions on the card, bit-equal, each
+    timed beside its bound."""
     import numpy as np
     import torch
 
@@ -1506,28 +1638,6 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
               f"({bound['bytes']} bytes, {bound['ops']} operations)"
               f"{extra} {tag}", flush=True)
 
-    def service_case(case, bank, fields, kw):
-        kw = dict(kw, plain=False)
-        B = fields[0].shape[0]
-        got = sv.service_round_packed(fmi, bank, *fields, **kw)
-        want, plain_ms = _event_ms(lambda: sv.service_round_packed(
-            fmi, bank, *fields, **dict(kw, plain=True)))
-        err = _max_abs_diff([got], [want])
-        bad = sorted({int(c) for c in (torch.nonzero(got != want)[:, 0]
-                                       // max(B, 1)).tolist()})
-        require(got.shape == want.shape and torch.equal(got, want),
-                f"the service kernel differs from its plain version ({case}) "
-                f"in columns {bad} (13: the flag): max |d| {err}")
-        bound = _service_bound(
-            fmi, bank, fields, got[:-2].view(sv.NCOLS, B), ext=kw["ext"],
-            walk=kw["walk"], seed_k=kw.get("seed_k", 0))
-        ms = cuda_ms(lambda: sv.service_round_packed(fmi, bank, *fields, **kw),
-                     20, ahead=True)
-        report("service", case, f"B={B} Lb={bank.shape[1]} {bank.dtype}", err,
-               ms, plain_ms, bound,
-               f", {bound['search_steps']} search, {bound['walk_steps']} walk "
-               f"and {bound['window_steps']} window steps")
-
     for resolve, ext, seeded in ((False, False, False), (True, False, False),
                                  (True, True, False), (True, True, True),
                                  (False, True, True)):
@@ -1537,14 +1647,14 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag,
         kw = dict(resolve=resolve, ext=ext, walk=True)
         if seeded:
             kw.update(seed_rows=table.rows, seed_k=table.k)
-        service_case(f"fuzzed lanes, all eight opcodes, resolve={resolve} "
-                     f"ext={ext} seed table {'k=%d' % table.k if seeded else 'none'}",
-                     bank, fields, kw)
-    for bank, fields, kw in recorded:
-        what = "mms_ext" if kw["ext"] else "mms"
-        service_case(f"a round recorded from single_align ({what} lanes)",
-                     bank, fields, {k: v for k, v in kw.items()
-                                    if k != "plain"})
+        rows.append(service_case(
+            fmi, f"fuzzed lanes, all eight opcodes, resolve={resolve} "
+                 f"ext={ext} seed table "
+                 f"{'k=%d' % table.k if seeded else 'none'}",
+            bank, fields, kw, forms, latency_us, tag))
+    for case, bank, fields, kw in recorded:
+        rows.append(service_case(fmi, case, bank, fields, kw, forms,
+                                 latency_us, tag))
 
     # K6: widths 0..32, tops across the genome, the tail, plo < 0
     plo = torch.from_numpy(rng.integers(-40, n + 40, size=nwindows).astype(
@@ -1675,12 +1785,13 @@ def walk_steps(fmi, rows):
     raise RuntimeError(f"a walk took more than {_WALK_LIMIT} steps")
 
 
-def window_loads(fmi, plo, width, split: int = 1):
+def window_slices(fmi, plo, width, split: int):
     """Per lane, the dependent loads of the inverse-SA chain of the window
     ``[plo, plo + width)`` (``fm::isa_chain``: the sample at or above the
-    window's top, then one LF step a position down to its floor), cut
-    into ``split`` slices of ``ceil(width / split)`` positions that chain
-    side by side: the longest slice's (int64; 0 for an empty window)."""
+    window's top, then one LF step a position down to its floor), cut into
+    ``split`` slices of ``ceil(width / split)`` positions that chain side
+    by side: the longest slice's and the sum over the slices (int64 each;
+    0 for an empty window)."""
     import torch
 
     from bwt_tpu_torch.ops import service as sv
@@ -1690,14 +1801,22 @@ def window_loads(fmi, plo, width, split: int = 1):
     plo, width = plo.to(torch.int64), width.to(torch.int64)
     size = (width + split - 1) // split
     best = torch.zeros_like(plo)
+    total = torch.zeros_like(plo)
     for s in range(split):
         lo = plo + s * size
         w = torch.minimum(size, width - s * size)
         p_hi = torch.clamp(lo + w - 1, max=n)
         anchor = torch.clamp(((p_hi + r - 1) >> shift) << shift, 0, n)
         span = (anchor - lo.clamp(min=0) + 1).clamp(min=0, max=r - 1 + sv.W)
-        best = torch.maximum(best, torch.where(w > 0, span, 0))
-    return best
+        span = torch.where(w > 0, span, 0)
+        best = torch.maximum(best, span)
+        total += span
+    return best, total
+
+
+def window_loads(fmi, plo, width, split: int = 1):
+    """Per lane, the longest slice's loads (:func:`window_slices`)."""
+    return window_slices(fmi, plo, width, split)[0]
 
 
 def lane_loads(fmi, fields, cols, *, seed_k: int = 0, split: int = 1,
@@ -2189,6 +2308,258 @@ def cpu_slots(seed=0, bits=25, nsub=1 << 15, nindel=4096):
                   flush=True)
 
 
+# --------------------------------------------------------------------------
+# Part A of the K7 and K11b redesigns, counted from the plain versions
+# before any kernel.
+#
+# K7 (the executor's service round) runs one request a lane, and a round of
+# the host engines holds up to 2^19 lanes in arrival order.  A lane's chain
+# of dependent loads is its search steps, its walk and its window scan
+# (lane_loads); a warp runs the three phases one after another, each until
+# its longest lane is done.  With a tile of T threads a lane
+# (svc::TileSplit) the search and the walk stay whole on every thread of
+# the tile, and the window is cut into T slices that chain side by side, so
+# a warp holds 32 / T lanes.  service_chains counts, for each T, each
+# warp's chain and the loads the round issues.
+#
+# K11b (the compose): a read's log rows (kinds, glens, bl3) are 64 bytes
+# apart across a warp, and its output row 48 bytes; compose_sectors counts
+# the 32-byte sectors a warp's loads and stores touch, one a lane where
+# the lanes' words lie in distinct sectors, against a warp that stages its
+# 32 reads' rows in shared memory with coalesced loads and stores its 32
+# output rows as 1,536 contiguous bytes.
+# --------------------------------------------------------------------------
+
+
+def service_chains(fmi, fields, cols, *, ext: bool, walk: bool,
+                   seed_k: int = 0, tiles=(1, 4, 8)) -> dict:
+    """Part A of K7 for one service round from its own results: per lane
+    its search, walk and window loads (:func:`lane_loads`, the walk only
+    where the round walks, the window only in an ``ext`` round), and for
+    each tile width T the warps' chains (32 / T lanes a warp, the window of
+    every ``_ext`` lane in T slices; a warp runs its lanes' searches, then
+    their walks, then their windows, each as long as its longest lane) and
+    the loads the round issues (a tile's threads each run the search and
+    the walk)."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.ops import service as sv
+
+    opc, _, _, ln, sp, ep, _ = fields
+    parts = lane_loads(fmi, fields, cols, seed_k=seed_k).cpu()
+    if not walk:
+        parts[1] = 0
+    live = (opc != sv.OP_NONE).cpu()
+    m_ext, b_ext = opc == sv.OP_MEXT, opc == sv.OP_BEXT
+    wlo = torch.where(m_ext, sp - cols[sv.MMS_M] - (ep + 3), sp)
+    wwid = torch.where(m_ext, 2 * (ep + 3) + 1, ep).clamp(0, sv.W)
+    wwid = torch.where((m_ext | b_ext) & ext, wwid, 0)
+    # a scan runs only on a live interval (service_lane.cuh)
+    ilo = torch.where(m_ext, cols[sv.OSP], cols[sv.START])
+    ihi = torch.where(m_ext, cols[sv.OEP], cols[sv.END])
+    wwid = torch.where(ilo < ihi, wwid, 0)
+    B = opc.shape[0]
+    parts[2] = window_slices(fmi, wlo, wwid, 1)[0].cpu()
+    out = dict(B=B, live=int(live.sum()), ext=ext, walk=walk,
+               search=int(parts[0].sum()), walk_loads=int(parts[1].sum()),
+               window=int(parts[2].sum()),
+               lane_longest=[int(parts[k].max()) if B else 0
+                             for k in range(3)])
+    by_tile = {}
+    for T in tiles:
+        best, total = (x.cpu() for x in window_slices(fmi, wlo, wwid, T))
+        per = 32 // T
+        nw = -(-B // per)
+
+        def warp_max(x):
+            pad = torch.zeros(nw * per, dtype=torch.int64)
+            pad[:B] = x
+            return pad.view(nw, per).amax(1)
+
+        # a warp runs the searches, then the walks, then the windows, each
+        # until its longest lane is done
+        warps = warp_max(parts[0]) + warp_max(parts[1]) + warp_max(best)
+        live_w = torch.zeros(nw * per, dtype=torch.bool)
+        live_w[:B] = live
+        warps = warps[live_w.view(nw, per).any(1)]
+        q = (np.percentile(warps.numpy(), [50, 90, 99]).tolist()
+             if warps.numel() else [0, 0, 0])
+        by_tile[T] = dict(
+            warps=int(warps.numel()),
+            longest=int(warps.max()) if warps.numel() else 0,
+            mean=float(warps.float().mean()) if warps.numel() else 0.0,
+            p50_p90_p99=q,
+            window_longest=int(best.max()) if B else 0,
+            issued=int(T * (parts[0].sum() + parts[1].sum()) + total.sum()))
+    out["tiles"] = by_tile
+    return out
+
+
+def compose_sectors(log, acc) -> dict:
+    """Part A of K11b for one chunk: the 32-byte sectors its warps' loads
+    and stores touch in the kernel's first layout (a thread a read, its
+    rows read slot by slot, its output row written word by word) and in a
+    warp-staged one (the warp's kinds, glens and bl3 rows and its output
+    rows as contiguous spans); the stream entries each form reads from the
+    blocks are the same.  Also the unique sectors of the data each form
+    needs, which is what DRAM or L2 must deliver at least once."""
+    import torch
+
+    from bwt_tpu_torch.ops import automaton as au
+    from bwt_tpu_torch.ops import compose as cmp
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+
+    v = au.align_unpack(log)
+    _, bl3, _, _ = dw.acc_unpack(acc)
+    Bp = v["lp"].shape[0]
+    n = v["lp"].clamp(0, au.LOGN).to(torch.int64)
+    slot = torch.arange(au.LOGN, device=n.device)[None, :]
+    vm = slot < n[:, None]
+    single = vm & ((v["kinds"] == au.K_M) | (v["kinds"] == au.K_I))
+    stitch = vm & ~single
+    bl = torch.where(single, 1, torch.where(vm, bl3, 0)).to(torch.int64)
+    offs = torch.cumsum(bl, 1) - bl
+    # the entries a stitch slot reads: those of the stream's first F2
+    read = torch.where(stitch, (cmp.F2 - offs).clamp(min=0).minimum(bl), 0)
+    entries = int(read.sum()) + int(torch.where(
+        single & (offs < cmp.F2), 1, 0).sum())
+    _, _, nrun, _, _ = cmp.compose_runs_plain(
+        v["kinds"], v["glens"], v["lp"], v["mode"], v["curpos"],
+        torch.zeros_like(v["lp"]), dw.acc_unpack(acc)[0], bl3)
+    flushed = nrun.to(torch.int64).clamp(max=min(cmp.RUNS_K, 8))
+    warps = -(-Bp // 32)
+    first = dict(
+        scalars=8 * 4 * warps,
+        kinds=int(n.sum()), glens=int(single.sum()), bl3=int(stitch.sum()),
+        runs=int(read.sum()),
+        stores=int((8 + 4 + flushed).sum()))
+    staged = dict(
+        scalars=8 * 4 * warps, kinds=64 * warps, glens=64 * warps,
+        bl3=64 * warps, runs=int(read.sum()), stores=48 * warps)
+    # the merge's steps a read (the slots it walks and the entries it
+    # merges, one after another on its thread), and a warp's longest
+    steps = (n + read.sum(1) + torch.where(single & (offs < cmp.F2), 1, 0)
+             .sum(1)).cpu()
+    pad = torch.zeros(warps * 32, dtype=torch.int64)
+    pad[:Bp] = steps
+    return dict(Bp=Bp, warps=warps, stream_entries=entries,
+                merge_steps=dict(mean=float(steps.float().mean()),
+                                 warp_longest_mean=float(
+                                     pad.view(warps, 32).amax(1).float()
+                                     .mean()),
+                                 longest=int(steps.max())),
+                first=dict(first, total=sum(first.values())),
+                staged=dict(staged, total=sum(staged.values())),
+                unique_bytes=Bp * (8 * 4 + 3 * 64 + 48) + 32 * int(
+                    (read > 0).sum()))
+
+
+def cpu_rounds(seed=0, bits=25, nsub=1 << 16, nindel=4096, nrna=1 << 16,
+               nlanes=1 << 13, nchunk=1 << 15):
+    """Part A of the K7 and K11b redesigns on the CPU, before any kernel:
+    the 2^``bits``-base genome and index of phases 3-4 (from ``seed``); every
+    service round of the host engines, recorded as phase 5 and phase 10 run
+    them (single_align on ``nsub`` substitution and ``nindel`` indel reads,
+    rna_seq on ``nrna`` complemented reads), and phase 7's five fuzzed
+    rounds of ``nlanes`` lanes, each through :func:`service_chains`; then a
+    chunk of ``nchunk`` substitution reads through the plain aligner
+    automaton and log stitch, and :func:`compose_sectors` on its compose.
+    One JSON line a round and one for the compose.
+
+        python3 -c 'import chip_smoke; chip_smoke.cpu_rounds()'
+
+    About 5 GiB and 15 minutes on the CPU."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import aligner, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import automaton as au
+    from bwt_tpu_torch.ops import dp_wavefront as dw
+    from bwt_tpu_torch.ops import search
+    from bwt_tpu_torch.ops import service as sv
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    t0 = time.perf_counter()
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cpu")
+    print(f"index on the CPU in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def emit(driver, k, bank, fields, out, kw):
+        B = fields[0].shape[0]
+        cols = out[:-2].view(sv.NCOLS, B)
+        line = service_chains(fmi, fields, cols, ext=kw.get("ext", False),
+                              walk=kw.get("walk", True),
+                              seed_k=kw.get("seed_k", 0))
+        print(json.dumps(dict(driver=driver, round=k, Lb=bank.shape[1],
+                              resolve=kw.get("resolve"), **line)), flush=True)
+
+    launch = sv.service_round_packed
+    for driver, run in (
+            ("single_align subst", lambda: aligner.align_reads(
+                fmi, codes, mutated_reads(rng, codes, nsub)[1],
+                engine="host", with_strand=True)),
+            ("single_align indel", lambda: aligner.align_reads(
+                fmi, codes, indel_reads(rng, codes, nindel)[1],
+                engine="host", with_strand=True)),
+            ("rna_seq", lambda: rnaseq.rna_seq(
+                fmi, complemented_reads(rng, codes, nrna)[1],
+                engine="host"))):
+        rounds = []
+
+        def recording(fmi_, bank, *fields, **kw):
+            out = launch(fmi_, bank, *fields, **kw)
+            rounds.append((bank, fields, out, kw))
+            return out
+
+        sv.service_round_packed = recording
+        t0 = time.perf_counter()
+        try:
+            run()
+        finally:
+            sv.service_round_packed = launch
+        print(f"{driver}: {len(rounds)} service rounds in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for k, (bank, fields, out, kw) in enumerate(rounds):
+            emit(driver, k, bank, fields, out, kw)
+        del rounds
+
+    table = search.build_seed_table(fmi, k=SEED_K)
+    for k, (resolve, ext, seeded) in enumerate((
+            (False, False, False), (True, False, False), (True, True, False),
+            (True, True, True), (False, True, True))):
+        bank_np, f_np = service_lanes(rng, codes, nlanes, with_n=resolve)
+        bank = torch.from_numpy(bank_np)
+        fields = tuple(torch.from_numpy(f_np).unbind(0))
+        kw = dict(resolve=resolve, ext=ext, walk=True)
+        if seeded:
+            kw.update(seed_rows=table.rows, seed_k=table.k)
+        out = launch(fmi, bank, *fields, **kw)
+        emit("fuzzed", k, bank, fields, out, kw)
+    del table
+
+    svc = QueryService(fmi, codes)
+    chunk = QueryService(fmi, svc.genome_dev, svc.config)
+    reads = mutated_reads(rng, codes, nchunk)[1]
+    chunk.add_reads_batch(reads, with_revcomp=True)
+    bank8 = chunk.bank8
+    Bp = bank8.shape[0] // 2
+    lens = np.zeros(Bp, np.int32)
+    lens[:len(reads)] = [len(r) for r in reads]
+    seedt = svc.seed
+    log = au.align_automaton_packed(
+        fmi, bank8, torch.from_numpy(lens), torch.arange(Bp) < len(reads),
+        fmi.length, seedt.rows, anchor_len=svc.config.anchor_len,
+        resolve=chunk._has_n, seed_k=seedt.k)
+    acc = dw.log_acc(Bp, torch.device("cpu"))
+    for L1, L2, jk, jt in log_buckets(log, bank8.shape[1]):
+        dw.dp_log_stitch(log, chunk.bank, chunk.genome_dev, jk, jt, acc,
+                         L1=L1, L2=L2)
+    print(json.dumps(dict(compose=compose_sectors(log, acc))), flush=True)
+
+
 def registers_of(fragment: str, report: str | None = None) -> list[int]:
     """The registers of each compiled kernel whose name holds ``fragment``,
     from a compiler report (phase 1's by default)."""
@@ -2201,65 +2572,80 @@ def registers_of(fragment: str, report: str | None = None) -> list[int]:
 
 
 # The automatons K10 and K9 at other tiles than the package's
-# (svc::kAutomatonTile), built apart to be timed beside it: the package
-# builds one tile, and these builds are never on its path.
+# (svc::kAutomatonTile), and the service kernel K7 with each of its choices
+# turned off, built apart to be timed beside the package: the package builds
+# one form of each, and these builds are never on its path.
 AUTOMATON_SOURCES = ("align_automaton.cu", "rnaseq_automaton.cu")
 AUTOMATON_LAUNCHERS = ("align_automaton_launch", "rnaseq_automaton_launch")
 OTHER_TILES = (1, 8)
+SERVICE_LAUNCHERS = ("service_launch",)
+# name: the define of csrc/service.cu that makes the form
+SERVICE_FORMS = {
+    "tile 1": "-DBWT_SERVICE_TILE=1",        # a thread a lane on every round
+    "tile 4": "-DBWT_SERVICE_TILE=4",        # four threads a lane on every one
+}
 
 
-def start_tile_builds(tiles=OTHER_TILES) -> dict:
-    """Start one ``nvcc`` a tile, together, each building the two
-    automatons' sources at that tile (``-DBWT_AUTOMATON_TILE``) into a
-    library of their two launchers under ``build/tile_variants/``."""
+def start_tile_builds(tiles=OTHER_TILES, forms=SERVICE_FORMS) -> dict:
+    """Start one ``nvcc`` a build, together: the two automatons' sources at
+    each tile (``-DBWT_AUTOMATON_TILE``, keyed by the tile) and the service
+    kernel's source in each form (keyed by its name), each into a library
+    of its launchers under ``build/tile_variants/``."""
     from bwt_tpu_torch.ops import _kernels
 
     out_dir = _kernels.BUILD_DIR.parent / "tile_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels._nvcc()
     stem = _kernels.library_path().stem
+    specs = {T: (f"tile{T}", f"-DBWT_AUTOMATON_TILE={T}", AUTOMATON_SOURCES)
+             for T in tiles}
+    specs.update({name: ("svc_" + re.sub(r"\W", "", name), define,
+                         ("service.cu",)) for name, define in forms.items()})
     started = {}
-    for T in tiles:
-        path = out_dir / f"{stem}_tile{T}.so"
-        cmd = [nvcc, *_kernels.NVCC_FLAGS, f"-DBWT_AUTOMATON_TILE={T}",
-               "-Xptxas", "-v", "-shared", "-o", str(path),
-               *(str(_kernels.CSRC / f) for f in AUTOMATON_SOURCES)]
-        started[T] = (path, cmd, subprocess.Popen(
+    for key, (suffix, define, sources) in specs.items():
+        path = out_dir / f"{stem}_{suffix}.so"
+        cmd = [nvcc, *_kernels.NVCC_FLAGS, define, "-Xptxas", "-v",
+               "-shared", "-o", str(path),
+               *(str(_kernels.CSRC / f) for f in sources)]
+        started[key] = (path, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     return started
 
 
-def finish_tile_builds(started) -> dict:
-    """Wait for :func:`start_tile_builds`: {tile: (library, the compiler's
-    report)}; a failed build, a stack frame or a spill fails the run."""
+def finish_tile_builds(started) -> tuple[dict, dict]:
+    """Wait for :func:`start_tile_builds`: ({tile: (library, the compiler's
+    report)}, {service form: (library, report)}); a failed build, a stack
+    frame or a spill fails the run."""
     import ctypes
 
     from bwt_tpu_torch.ops import _kernels
 
     base = _kernels.library()
-    built = {}
-    for T, (path, cmd, proc) in started.items():
+    tiles, forms = {}, {}
+    for key, (path, cmd, proc) in started.items():
         so, se = proc.communicate()
-        require(proc.returncode == 0, f"nvcc failed on the automatons at "
-                                      f"tile {T}:\n{' '.join(cmd)}\n{so}{se}")
+        require(proc.returncode == 0, f"nvcc failed on the build {key!r}:\n"
+                                      f"{' '.join(cmd)}\n{so}{se}")
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores", se)
         require(frames and all(f == ("0", "0") for f in frames),
-                f"the automatons at tile {T} keep values in local memory: "
-                f"{frames}")
+                f"the build {key!r} keeps values in local memory: {frames}")
         lib = ctypes.CDLL(str(path))
-        for name in AUTOMATON_LAUNCHERS:
+        launchers = (SERVICE_LAUNCHERS if isinstance(key, str)
+                     else AUTOMATON_LAUNCHERS)
+        for name in launchers:
             fn = getattr(lib, name)
             fn.argtypes = getattr(base, name).argtypes
             fn.restype = ctypes.c_int
-        built[T] = (lib, se)
-    return built
+        (forms if isinstance(key, str) else tiles)[key] = (lib, se)
+    return tiles, forms
 
 
 @contextlib.contextmanager
-def automaton_tile(lib):
-    """The automatons' wrappers launch from ``lib`` (a library of
-    :func:`finish_tile_builds`; None: the package's own) inside the block."""
+def automaton_tile(lib, launchers=AUTOMATON_LAUNCHERS):
+    """The wrappers of ``launchers`` (the automatons' by default) launch
+    from ``lib`` (a library of :func:`finish_tile_builds`; None: the
+    package's own) inside the block."""
     from bwt_tpu_torch.ops import _kernels
 
     if lib is None:
@@ -2269,7 +2655,7 @@ def automaton_tile(lib):
 
     class Shim:
         def __getattr__(self, name):
-            return getattr(lib if name in AUTOMATON_LAUNCHERS else base, name)
+            return getattr(lib if name in launchers else base, name)
 
     _kernels._lib = Shim()
     try:
@@ -2522,16 +2908,27 @@ def phase_align_kernels(fmi, svc, chunks, tag, latency_us,
     bound_c = bound_of(Bp * (6 * 4 + 3 * au.LOGN * 4 + 8 + 4 * cmp.OUT_W)
                        + 4 * entries, 0)
     regs = registers_of("compose_kernel")
+    sectors = compose_sectors(log, got)
     rows.append(dict(kernel="compose", case="the lanes of a chunk of phase 5, "
                      "subst", shape=f"Bp={Bp}, K={cmp.RUNS_K}",
                      max_abs_err=err, ms=ms_c, plain_ms=plain_c,
-                     registers=regs, stream_entries=entries, **bound_c))
+                     registers=regs, stream_entries=entries, sectors=sectors,
+                     **bound_c))
     print(f"phase 7 K11b compose on the {Bp} lanes of that chunk: bit-equal "
           f"to its plain version (tolerance 0, max |d| {err}), kernel "
-          f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound "
+          f"{ms_c:.4f} ms ({100 * bound_c['bound_ms'] / ms_c:.1f} % of its "
+          f"bound), plain {plain_c:.4f} ms, bound "
           f"{bound_c['bound_ms']:.4f} ms by {bound_c['bound_by']} "
           f"({bound_c['bytes']} bytes, {entries} stream entries read); "
-          f"registers {regs} {tag}", flush=True)
+          f"32-byte sector requests of the warps, a thread a read / "
+          f"staged by the warp (this kernel): {sectors['first']['total']} / "
+          f"{sectors['staged']['total']}; the merge's steps (slots walked "
+          f"and entries merged, one after another on a read's thread): "
+          f"{sectors['merge_steps']['mean']:.2f} a read, "
+          f"{sectors['merge_steps']['warp_longest_mean']:.2f} a warp's "
+          f"longest on average, {sectors['merge_steps']['longest']} at most; "
+          f"registers {regs} {tag}",
+          flush=True)
     return rows
 
 
@@ -2625,11 +3022,12 @@ def _automaton_case(fmi, svc, reads, tag, latency_us, variants) -> dict:
 
 
 def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
-                  read_len=50, subset=1024, forced=4096, no_isa=4096,
+                  forms, read_len=50, subset=1024, forced=4096, no_isa=4096,
                   nwindows=4096):
     """Phase 10: rna_seq on reads cut from the genome with one base
     complemented (the self-benchmark of rnaseqtest.c:313-327): the device
-    automaton ("auto"), then the host engine on the same reads, then the
+    automaton ("auto"), then the host engine on the same reads, whose
+    service rounds K7 is timed on as phase 7 times it (``forms``), then the
     executor's isa_range request."""
     import dataclasses
 
@@ -2717,8 +3115,15 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
             return out
         return run
 
+    rounds, launch = [], service.service_round_packed
+
+    def recording(fmi_, bank, *fields, **kw):
+        rounds.append((bank, fields, kw))
+        return launch(fmi_, bank, *fields, **kw)
+
     BatchExecutor._dispatch_round = clocked("dispatch", dispatch)
     BatchExecutor._finish_service = staticmethod(clocked("replies", finish))
+    service.service_round_packed = recording
     zero_counts()
     try:
         t0 = time.perf_counter()
@@ -2727,6 +3132,7 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
     finally:
         BatchExecutor._dispatch_round = dispatch
         BatchExecutor._finish_service = staticmethod(finish)
+        service.service_round_packed = launch
     stats = dict(svc.last_stats)
     launches = service.SERVICE_LAUNCHES
     require(launches == stats["svc_calls"] == stats["svc_launches"] > 0,
@@ -2768,6 +3174,11 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
     require(ncapped > 0 and np.array_equal(capped, pos[:forced]),
             f"the forced cap ({ncapped} reads capped) changed a value")
 
+    k7_rows = [service_case(fmi, case, bank, fields, kw, forms, latency_us,
+                            tag)
+               for case, bank, fields, kw in pick_rounds(
+                   "rna_seq's complemented reads", rounds)]
+    del rounds
     k9_row = _automaton_case(fmi, svc, reads[:svc.config.search_batch], tag,
                              latency_us, variants)
     rest = dt_host - clocks["dispatch"] - clocks["replies"] - stats["t_gen"]
@@ -2847,6 +3258,7 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
         automaton_launches=k9, device_stats=dstats, host_s=dt_host,
         host_per_s=nreads / dt_host, launches=launches, stats=stats,
         clocks=clocks, cpu_subset_s=cpu_s, forced_capped=ncapped, k9=k9_row,
+        k7=k7_rows,
         no_isa_s=dt_bare, unc_launches=unc, isa_launches=isa,
         isa_svc_launches=service.SERVICE_LAUNCHES)
 
@@ -2885,6 +3297,102 @@ def rna_walls(n=RNA_WALLS, seed=0, nreads=1 << 16, read_len=50) -> dict:
     out = dict(tree=str(ROOT), n=n, walls_s=walls,
                median_s=float(np.median(walls)), card=card_line())
     print(json.dumps(out), flush=True)
+    return out
+
+
+def rna_profile(n=RNA_WALLS, seed=0, nreads=1 << 16, read_len=50,
+                trace=None) -> dict:
+    """Where rna_seq's device engine spends its host time, on phase 10's
+    input with the entry points of every earlier tree (as :func:`rna_walls`):
+    ``n`` untraced runs with a clock around each step of the engine (the
+    bank's build, the uploads, the K9 wrapper and its launch, the copy
+    back and its wait, the flag's read), then one warmed run under
+    cProfile and one under torch.profiler (host and device activities;
+    ``trace`` names a Chrome trace file to write).  Prints one JSON line
+    and the two profiles' tables:
+
+        python3 chip_smoke.py --rna-profile 7"""
+    import cProfile
+    import io
+    import pstats
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import batch_exec, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import automaton
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << 25).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cuda")
+    starts, reads, _ = complemented_reads(rng, codes, nreads, read_len)
+    svc = QueryService(fmi)
+    exact = codes[np.add.outer(starts[:256], np.arange(read_len))]
+    require(np.array_equal(rnaseq.rna_seq(fmi, exact, service=svc),
+                           starts[:256]),
+            "an unmutated read does not report its origin")
+    first = rnaseq.rna_seq(fmi, reads, service=svc)
+
+    clocks = {}
+
+    def clocked(key, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                clocks.setdefault(key, []).append(time.perf_counter() - t)
+        return run
+
+    patched = [(rnaseq, "_host_array"), (rnaseq, "_to_device"),
+               (rnaseq, "_to_host_async"), (automaton, "_automaton_kernel"),
+               (automaton, "rna_seq_automaton_packed"),
+               (automaton, "automaton_raise"),
+               (batch_exec.QueryService, "add_reads_batch"),
+               (batch_exec.QueryService, "reset_reads")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    walls = []
+    try:
+        for obj, name, fn in saved:
+            setattr(obj, name, clocked(name, fn))
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pos = rnaseq.rna_seq(fmi, reads, service=svc)
+            walls.append(time.perf_counter() - t0)
+            require(np.array_equal(pos, first), "rna_seq changed on a rerun")
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    # the median over the runs of each step's total a run
+    steps = {k: float(np.median(np.asarray(v).reshape(n, -1).sum(1)))
+             for k, v in clocks.items()}
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    rnaseq.rna_seq(fmi, reads, service=svc)
+    prof.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(25)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        rnaseq.rna_seq(fmi, reads, service=svc)
+        torch.cuda.synchronize()
+    if trace:
+        tp.export_chrome_trace(str(trace))
+    table = tp.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=25)
+    out = dict(tree=str(ROOT), n=n, walls_s=walls,
+               median_s=float(np.median(walls)), steps_median_s=steps,
+               card=card_line())
+    print(json.dumps(out), flush=True)
+    print(buf.getvalue(), flush=True)
+    print(table, flush=True)
     return out
 
 
@@ -3052,6 +3560,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rna-walls", type=int, default=0, metavar="N",
                     help="only time rna_seq's device engine N times "
                          "(rna_walls) and exit")
+    ap.add_argument("--rna-profile", type=int, default=0, metavar="N",
+                    help="only profile rna_seq's device engine's host time "
+                         "over N runs (rna_profile) and exit; with --out, "
+                         "its Chrome trace goes there")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3062,6 +3574,9 @@ def main(argv=None) -> int:
         return 1
     if args.rna_walls:
         rna_walls(args.rna_walls, seed=args.seed)
+        return 0
+    if args.rna_profile:
+        rna_profile(args.rna_profile, seed=args.seed, trace=args.out)
         return 0
     from bwt_tpu_torch.ops import _kernels
 
@@ -3091,15 +3606,20 @@ def main(argv=None) -> int:
           f"K5 seed_rows (by levels expanded) "
           f"{registers_of('seed_rows_kernel')}, K11a (warp, block and tall "
           f"forms) {registers_of('LogForm')} {tag}", flush=True)
-    variants = finish_tile_builds(tile_builds)
+    variants, svc_forms = finish_tile_builds(tile_builds)
     print(f"phase 1 the automatons K10 and K9 built apart at tiles "
-          f"{sorted(variants)} to be timed beside the package's, in "
+          f"{sorted(variants)} and K7 in the forms {list(svc_forms)}, to be "
+          f"timed beside the package's, in "
           f"{time.perf_counter() - t0:.3f} s from the start of the build; "
           f"registers " + ", ".join(
               f"tile {T}: K10 {registers_of('align_automaton_kernel', r)}, "
               f"K9 {registers_of('rnaseq_automaton_kernel', r)}"
               for T, (_, r) in sorted(variants.items()))
-          + f", no stack frame, no spills {tag}", flush=True)
+          + ", " + ", ".join(f"K7 {name}: {registers_of('service_kernel', r)}"
+                             for name, (_, r) in svc_forms.items())
+          + f"; the package's K7 {registers_of('service_kernel')} (uint8 "
+            f"and int32 banks at tiles 1 and 4), no stack frame, no spills "
+            f"{tag}", flush=True)
 
     rng = np.random.default_rng(args.seed)
     dp_rows = phase_kernel(rng, tag)
@@ -3114,13 +3634,14 @@ def main(argv=None) -> int:
     report["nw_batch"] = phase_nw_batch(codes, rng, NW_PAIRS, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
     report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
+    latency_us = load_latency(fmi, codes, tag)
     report["kernels"] += phase_service_kernels(fmi, codes, rng, table,
-                                               recorded, tag)
+                                               recorded, tag, svc_forms,
+                                               latency_us)
     del recorded
     from bwt_tpu_torch.models.batch_exec import QueryService
 
     align_svc = QueryService(fmi, codes)
-    latency_us = load_latency(fmi, codes, tag)
     report["kernels"] += phase_align_kernels(
         fmi, align_svc, [("subst", sub_reads[:align_svc.config.search_batch]),
                          ("indel", ind_reads)], tag, latency_us,
@@ -3128,9 +3649,9 @@ def main(argv=None) -> int:
     report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
                                                        1 << 20, tag)
     rna_reads, rna = phase_rna_seq(fmi, codes, rng, 1 << 16, tag, latency_us,
-                                   variants)
+                                   variants, svc_forms)
     report["rna_seq"] = rna
-    report["kernels"].append(rna["k9"])
+    report["kernels"] += [rna["k9"], *rna["k7"]]
     phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
                    codes, sub_reads)
     del fmi, table, kmers
@@ -3198,8 +3719,11 @@ def main(argv=None) -> int:
         ("service", "bwt_tpu_torch/csrc/service.cu",
          "bwt_tpu/models/batch_exec.py:304",
          al["K7"] + rna["launches"] + rna["isa_svc_launches"],
-         row_of("service", "a round recorded from single_align (mms "
-                           "lanes)"), None),
+         row_of("service", next(
+             r["case"] for r in report["kernels"]
+             if r["kernel"] == "service"
+             and r["case"].startswith("round 0 of single_align's subst"))),
+         None),
         ("rnaseq_automaton", "bwt_tpu_torch/csrc/rnaseq_automaton.cu",
          "bwt_tpu/models/rnaseq.py:265", rna["automaton_launches"],
          row_of("rnaseq_automaton"), None),

@@ -608,3 +608,39 @@ def test_compose_merge_and_count_overflow():
         n=2, fill=_count_case, mode=[1, 1], curpos=[500, 500],
         head_end=[0, 0]))
     assert over[0] and not over[1] and nr[1] == 1 and fc[1, 0] == 32000
+
+
+@pytest.mark.parametrize("Bp", [1, 33, 300])
+def test_compose_edge_rows_match_bwt_tpu(Bp):
+    """compose_runs_plain against _compose_device on chip_smoke's
+    compose_edge_rows: log pointers past the 16 slots, every kind, blocks
+    longer than BLOCK_W and streams past F2, counts past 254 and int16,
+    more runs than K and than 8; and the packed rows' fields from them."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import compose_edge_rows
+
+    log, acc = compose_edge_rows(np.random.default_rng(Bp), Bp)
+    v = au.align_unpack(log)
+    runs_oc, bl3, head_end, over_rle = dpw.acc_unpack(acc)
+    want = jaligner._compose_device(
+        jnp.asarray(v["kinds"].numpy().astype(np.int8)),
+        jnp.asarray(v["glens"].numpy().astype(np.int16)),
+        jnp.asarray(v["lp"].numpy()), jnp.asarray(v["mode"].numpy()),
+        jnp.asarray(v["curpos"].numpy()), jnp.asarray(head_end.numpy()),
+        jnp.asarray(runs_oc.numpy()), jnp.asarray(bl3.numpy()))
+    got = cmp.compose_runs_plain(v["kinds"], v["glens"], v["lp"], v["mode"],
+                                 v["curpos"], head_end, runs_oc, bl3)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy().astype(np.int64),
+                              np.asarray(b).astype(np.int64))
+    fo, fc, nrun, res, over = got
+    rows = cmp.compose(log, acc)
+    assert torch.equal(rows[:, 0], res) and torch.equal(rows[:, 2], nrun)
+    assert torch.equal((rows[:, 1] >> 4) & 1, over.to(torch.int32))
+    assert torch.equal(rows[:, 4:], fc[:, :8].clamp(0, 255))
+    if Bp > 1:  # the edges are reached
+        assert bool(over.any()) and bool((nrun > 8).any())
+        assert bool(((rows[:, 1] >> 7) & 1).any())

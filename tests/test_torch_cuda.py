@@ -31,7 +31,8 @@ from bwt_tpu_torch.models.batch_exec import QueryService, _service_core
 from bwt_tpu_torch.ops import dp_wavefront, search, service
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import (log_edge_jobs, mixed_reads, service_lanes,  # noqa: E402
+from chip_smoke import (compose_edge_rows, log_edge_jobs,  # noqa: E402
+                        mixed_reads, service_lanes,
                         stitch_jobs)
 
 pytestmark = pytest.mark.cuda
@@ -587,6 +588,30 @@ def test_service_kernel_seeded_matches_plain(search_env, resolve, k):
         assert torch.equal(a, b), f"column {c}"
 
 
+@pytest.mark.parametrize("B", [1, 31, 4096, 8192, 20000])
+@pytest.mark.parametrize("ext", [False, True], ids=["noext", "ext"])
+def test_service_kernel_by_round_size_matches_plain(search_env, ext, B):
+    """K7 in both of its built forms, picked by the round's size: a tile of
+    four threads a lane (at most 16,384 lanes; an ext lane's window in
+    slices) and a thread a lane (past it): bit-equal to its plain version,
+    and to the plain version's sliced window, in all 13 columns and the
+    flag."""
+    codes, fmi, rng = search_env
+    bank_np, f = service_lanes(rng, codes[:fmi.length], B, R=32, Lb=48)
+    bank = torch.from_numpy(bank_np).cuda()
+    got, want = _service_both(fmi, bank, f, resolve=True, ext=ext)
+    if isinstance(want, type):
+        assert got is want
+        return
+    for c, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), f"column {c}"
+    fields = torch.from_numpy(f).cuda().unbind(0)
+    sliced = service.service_round_plain(fmi, bank, *fields, resolve=True,
+                                         ext=ext, width=4)
+    for c, (a, b) in enumerate(zip(got, sliced.cpu())):
+        assert torch.equal(a, b), f"column {c} against width 4"
+
+
 def test_service_bound_and_arguments_raise_on_card(card):
     """A walk from a row past the suffix array raises through K7, consumed
     or not; a wrong argument raises before any launch."""
@@ -898,6 +923,22 @@ def test_log_stitch_and_compose_kernels_match_plain(card, monkeypatch):
         rows = compose.compose(log, got, K=K)
         assert torch.equal(rows, compose.compose(log, got, K=K, plain=True))
     assert compose.COMPOSE_LAUNCHES == launches + 2
+
+
+@pytest.mark.parametrize("K", [16, 8, 1])
+@pytest.mark.parametrize("Bp", [1, 31, 33, 4103])
+def test_compose_kernel_edge_rows_match_plain(card, Bp, K):
+    """K11b against its plain version on chip_smoke.compose_edge_rows, warps
+    full and partial: log pointers past the 16 slots, blocks past BLOCK_W,
+    streams past F2, counts past 254 and int16, more runs than K and 8."""
+    from bwt_tpu_torch.ops import compose
+
+    log, acc = (t.to(card) for t in compose_edge_rows(
+        np.random.default_rng(Bp + K), Bp))
+    launches = compose.COMPOSE_LAUNCHES
+    rows = compose.compose(log, acc, K=K)
+    assert compose.COMPOSE_LAUNCHES == launches + 1
+    assert torch.equal(rows, compose.compose(log, acc, K=K, plain=True))
 
 
 @pytest.mark.parametrize("L1,L2", [(32, 32), (32, 64), (32, 96), (64, 64),

@@ -154,3 +154,45 @@ def test_service_walk_bound_raises():
     with pytest.raises(RuntimeError, match="row 65"):
         tbe._service_core(tfmi, bank, *f.unbind(0), resolve=False)
     assert service.SERVICE_LAUNCHES == 0  # a CPU index launches nothing
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+@pytest.mark.parametrize("resolve,seed_k", [(False, 0), (True, 0), (True, 4)],
+                         ids=["raw", "resolve", "seeded"])
+def test_service_plain_width_matches_bwt_tpu(width, resolve, seed_k):
+    """The plain round's ``width`` (the kernel's tile on an ext round: the
+    window in slices, each chained from its own sample) against bwt_tpu's
+    round, all eight opcodes and all 13 columns, on windows whose slices
+    start on and off a sample (rate 4 and 32)."""
+    for n, rate in ((3001, 4), (2999, 32)):
+        g, jfmi, tfmi = _env(n, rate)
+        rng = np.random.default_rng(31 * width + 2 * resolve + seed_k + rate)
+        bank, f = service_lanes(rng, g, B, R=32, Lb=48)
+        jseed = tseed = None
+        if seed_k:
+            jseed = jsearch._seed_rows(jfmi, seed_k)
+            tseed = tsearch._seed_rows(tfmi, seed_k)
+        want = _jcore(resolve, True, seed_k)(jfmi, bank.astype(np.int32), *f,
+                                             seed_rows=jseed)
+        got = service.service_round_plain(
+            tfmi, torch.from_numpy(bank), *torch.from_numpy(f).unbind(0),
+            resolve=resolve, ext=True, seed_rows=tseed, seed_k=seed_k,
+            width=width)
+        for name, a, b in zip(COLS, got.numpy(), want):
+            b = np.asarray(b)
+            bad = np.flatnonzero(a != b)
+            assert not bad.size, (f"width {width}: column {name} differs on "
+                                  f"lanes {bad[:8]}: {a[bad[:8]]} != "
+                                  f"{b[bad[:8]]}")
+        # the windows hit in more than one slice
+        ext = np.isin(f[0], (6, 7))
+        assert (got[service.WBEST].numpy()[ext] >= 0).sum() > 4
+
+
+def test_service_plain_width_rejects_a_non_power_of_two():
+    g, _, tfmi = _env(3001, 4)
+    bank, f = service_lanes(np.random.default_rng(0), g, 32, R=32, Lb=48)
+    with pytest.raises(ValueError, match="power of two"):
+        service.service_round_plain(
+            tfmi, torch.from_numpy(bank), *torch.from_numpy(f).unbind(0),
+            resolve=True, ext=True, width=3)
