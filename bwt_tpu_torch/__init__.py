@@ -17,7 +17,7 @@ Quick start::
 
 __version__ = "0.1.0"
 
-from bwt_tpu_torch import codec
+from bwt_tpu_torch import codec, parallel
 from bwt_tpu_torch.config import DEFAULT as DEFAULT_CONFIG
 from bwt_tpu_torch.config import Config
 from bwt_tpu_torch.index import (
@@ -36,6 +36,7 @@ from bwt_tpu_torch.ops.rank import rank as fm_rank
 
 __all__ = [
     "codec",
+    "parallel",
     "Config",
     "DEFAULT_CONFIG",
     "FMIndex",

@@ -180,7 +180,7 @@ def _assemble(bwt_codes, sa_samples, endloc, length: int, sa_rate: int,
 
 
 def build_index(seq, *, sa_sample_rate: int | None = None,
-                verify: bool = False, config=None, device=None,
+                verify: bool = False, config=None, sa=None, device=None,
                 index_dtype="auto") -> FMIndex:
     """Build an FM-index from genome codes (or ASCII text) on ``device``
     (default: the card when there is one).
@@ -189,7 +189,11 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
     checkpoints (``make_fmi``, seqindex.c:161-212).  ``sa_sample_rate``
     is a power of two, default from config (32, the reference's and the
     file format's).  ``verify=True`` runs the exact suffix-array check
-    and raises on failure.  ``index_dtype`` follows ``bwt_tpu``'s rules:
+    and raises on failure.  A precomputed ``sa`` (numpy or a tensor, e.g.
+    from :func:`bwt_tpu_torch.parallel.sharded_suffix_array`) skips the
+    sort: :func:`_finish_index` rebuilds the ISA from it with one scatter;
+    with the int64 layout it raises ValueError, as in ``bwt_tpu``.
+    ``index_dtype`` follows ``bwt_tpu``'s rules:
     ``"auto"`` keeps int32 through ``suffix.INT32_MAX_LEN`` and takes the
     wide (int64) layout past it; int32 past the cap raises ValueError; the
     wide layout is not ported and raises NotImplementedError."""
@@ -218,6 +222,11 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
             raise ValueError(
                 f"genome length {len(seq)} exceeds the int32 FM-index cap "
                 f"({suffix.INT32_MAX_LEN}); pass index_dtype=np.int64")
+    if sa is not None and wide:
+        raise ValueError(
+            "index_dtype=int64 with a precomputed sa= is not supported (the "
+            "sharded build is int32; build through the in-process suffix "
+            "sort instead)")
     if wide:
         raise NotImplementedError(
             "the int64 (wide) FM-index is not ported (ROADMAP Queue 1 "
@@ -226,12 +235,33 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
     host = np.ascontiguousarray(np.asarray(seq, dtype=np.uint8))
     length = len(host)
     codes = torch.from_numpy(host).to(device).to(torch.int64)
+    if sa is not None:
+        sa = (sa if isinstance(sa, torch.Tensor) else torch.from_numpy(
+            np.array(sa, np.int32))).to(device, torch.int32)
+        if tuple(sa.shape) != (length + 1,):
+            raise ValueError(f"sa of shape {tuple(sa.shape)} for a genome of "
+                             f"{length} bases (want ({length + 1},))")
+        if verify and not suffix.verify_suffix_array(codes, sa):
+            raise AssertionError("suffix array verification failed")
+        return _finish_index(codes, sa, length, sa_sample_rate)
     sa, isa = suffix.suffix_array_with_isa(codes)
     if verify and not suffix.verify_suffix_array(codes, sa):
         raise AssertionError("suffix array verification failed")
     bwt, endloc = suffix.bwt_from_isa(codes, isa)
     return _assemble(bwt, sa[::sa_sample_rate], endloc, length,
                      sa_sample_rate, isa[::sa_sample_rate])
+
+
+def _finish_index(codes: torch.Tensor, sa: torch.Tensor, length: int,
+                  sa_rate: int) -> FMIndex:
+    """Finish from a given SA (the sharded build, tests): one scatter
+    rebuilds the ISA, then the BWT by the ISA permutation."""
+    m = sa.shape[0]
+    isa = torch.zeros(m, dtype=torch.int32, device=sa.device)
+    isa[sa.long()] = torch.arange(m, dtype=torch.int32, device=sa.device)
+    bwt, endloc = suffix.bwt_from_isa(codes, isa)
+    return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
+                     isa[::sa_rate])
 
 
 def index_from_parts(*, bwt_codes, sa_samples, endloc, length: int,

@@ -58,9 +58,10 @@ _RUNS_RE = None  # compiled at first use
 class _RenderedCigar(Cigar):
     """A Cigar whose render string was built vectorized (numpy over the
     compose's ops and counts) instead of from a per-read ops list.  ``ops``
-    is parsed from the string at first access; from then on it behaves as
-    a plain Cigar (render recomputes from ops, so a mutation stays
-    coherent)."""
+    is parsed from the string at first access, which drops the string
+    (``_render`` None); from then on it behaves as a plain Cigar (render
+    recomputes from ops, so a mutation stays coherent).  Until then render
+    and truth read the string, without an exception to catch."""
 
     __slots__ = ("_render",)
 
@@ -75,22 +76,17 @@ class _RenderedCigar(Cigar):
             ops = [[op, int(cnt)]
                    for cnt, op in _RUNS_RE.findall(self._render)][::-1]
             self.ops = ops
+            self._render = None
             return ops
         raise AttributeError(name)
 
     def render(self) -> str:
-        try:
-            object.__getattribute__(self, "ops")
-        except AttributeError:
-            return self._render
-        return super().render()
+        r = self._render
+        return super().render() if r is None else r
 
     def __bool__(self) -> bool:
-        try:
-            object.__getattribute__(self, "ops")
-        except AttributeError:
-            return bool(self._render)
-        return super().__bool__()
+        r = self._render
+        return super().__bool__() if r is None else bool(r)
 
 
 def _yield_nw(row, roff, rlen, rrev, gstart, glen, grev, s: Cigar):
@@ -902,6 +898,32 @@ def _align_reads_device_inner(fmi, genome, glen, codes_list, anchor_len, cfg,
     return results
 
 
+def _merge_results(mesh, part: list) -> list:
+    """The ranks' (pos, Cigar | None, rev) results in read order on every
+    rank: each rank's rows (position, whether it has a CIGAR, the strand,
+    the length of the CIGAR's rendering) and its renderings joined into one
+    string, both gathered along 'dp'.  The CIGARs come back as
+    :class:`_RenderedCigar`, as the device engine builds them (a
+    ``_RenderedCigar`` pickles by parsing its ops; a rendering does not)."""
+    from bwt_tpu_torch.parallel import mesh as pmesh
+
+    texts = ["" if c is None else c.render() for _, c, _ in part]
+    rows = np.array([(p, c is not None, rev, len(t)) for (p, c, rev), t
+                     in zip(part, texts)], np.int64).reshape(-1, 4)
+    rows = pmesh.gather_batch(mesh, rows)
+    text = pmesh.gather_batch(mesh, np.frombuffer(
+        "".join(texts).encode(), np.uint8)).tobytes().decode()
+    new_c, out, at = _RenderedCigar.__new__, [], 0
+    for (p, has, rev, n) in rows.tolist():
+        cig = None
+        if has:
+            cig = new_c(_RenderedCigar)
+            cig._render = text[at:at + n]
+        out.append((p, cig, bool(rev)))
+        at += n
+    return out
+
+
 def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
                 config=None, service: QueryService | None = None,
                 with_strand: bool = False, engine: str = "auto", mesh=None):
@@ -920,15 +942,25 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     log's int16 columns), as ``bwt_tpu`` does, else the host engine.  A
     longer read raises ValueError with "device".  The results are the same
     either way, and equal the JAX package's for either of its engines.
-    ``mesh`` is not ported yet."""
+
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1) runs the
+    device engine on every rank, each on its contiguous share of the reads
+    (``parallel.mesh.share``; a rank whose share is empty, when there are
+    fewer reads than ranks, aligns none) and on its own device, then
+    gathers the results along 'dp' (:func:`_merge_results`), so every rank
+    returns the whole list in read order, equal to the single-device
+    run's.  It needs the device engine (ValueError
+    otherwise, and for a read past 32,767 bases); a mesh with tp > 1
+    raises NotImplementedError."""
     from bwt_tpu_torch.config import DEFAULT
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "align_reads(mesh=...) is not ported (ROADMAP Queue 1: "
-            "multi-device)")
+        from bwt_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.require_dp(mesh, "align_reads")
+        fmi = pmesh.replicate_index(fmi, mesh)
     if config is not None:
         cfg = config
     elif service is not None:
@@ -964,12 +996,21 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     use_dev = engine == "device" or (
         engine == "auto" and fmi.isa_samples is not None)
     if use_dev and max_len > 32767:
-        if engine == "device":
+        if engine == "device" or mesh is not None:
             raise ValueError(
                 f"read length {max_len} exceeds the device automaton's "
                 "int16 stitch-log width (32767); use engine='host'")
         use_dev = False
-    if use_dev:
+    if mesh is not None and not use_dev:
+        raise ValueError("mesh= requires the device engine "
+                         "(an index with isa_samples)")
+    if mesh is not None:
+        lo, hi = pmesh.share(len(codes_list), mesh)
+        part = (_align_reads_device(fmi, genome, glen, codes_list[lo:hi],
+                                    anchor_len, cfg, svc) if hi > lo else [])
+        with pmesh.merging():
+            results = _merge_results(mesh, part)
+    elif use_dev:
         results = _align_reads_device(fmi, genome, glen, codes_list,
                                       anchor_len, cfg, svc)
     else:

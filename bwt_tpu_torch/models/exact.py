@@ -70,6 +70,22 @@ def anchor_scan_plain(fmi: FMIndex, patterns, lengths, *,
     return nmatch, pos
 
 
+def anchor_scan_mesh(mesh, fmi_r, patterns, lengths, *,
+                     min_anchor: int = MIN_ANCHOR, reverse: bool = False):
+    """:func:`anchor_scan` of this rank's contiguous share of the batch
+    along the mesh's 'dp' axis, on its device (one launch of the kernel on
+    a card).  The batch must divide the dp size (callers pad).  Returns the
+    rank's (B / dp,) shards of ``(n_anchors, last_anchor_pos)``, where
+    ``bwt_tpu`` returns global arrays; ``parallel.gather_hits`` joins
+    them.  ``fmi_r`` is the index on the rank's device
+    (``parallel.replicate_index``)."""
+    from bwt_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.require_dp(mesh, "anchor_scan_mesh")
+    p, ln = pmesh.shard_patterns(patterns, lengths, mesh)
+    return anchor_scan(fmi_r, p, ln, min_anchor=min_anchor, reverse=reverse)
+
+
 def _plain_reverse(pat: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Each read's ``pattern[:len]`` reversed (not complemented),
     left-aligned and zero-padded like ``pat``:
@@ -230,14 +246,22 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
     and one copy back, the next chunk queued while it runs.
 
     Returns a dict of numpy arrays: ``fwd_matches, fwd_pos, rev_matches,
-    rev_pos, paired``."""
+    rev_pos, paired``.
+
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1): each rank
+    scans its contiguous share of the reads (``parallel.mesh.share``,
+    shares of ceil(B / dp), so no pad reads) on its own device, chunk by
+    chunk as above, and one all-gather along 'dp' gives every rank the
+    whole result in read order, equal to the single-device run's.  A mesh
+    with tp > 1 raises NotImplementedError."""
     from bwt_tpu_torch.config import DEFAULT
 
     cfg = config or DEFAULT
     if mesh is not None:
-        raise NotImplementedError(
-            "search_reads(mesh=...) is not ported (ROADMAP Queue 1: "
-            "multi-device)")
+        from bwt_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.require_dp(mesh, "search_reads")
+        fmi = pmesh.replicate_index(fmi, mesh)
     if cfg.elastic_fallback:
         raise NotImplementedError(
             "config.elastic_fallback is not ported (ROADMAP Queue 1: "
@@ -249,8 +273,15 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
         raise ValueError(
             f"read length {pat.shape[1]} exceeds config.max_read_len "
             f"{cfg.max_read_len} (search_reads.c:30's 256*256 buffer)")
+    if mesh is not None:
+        lo, hi = pmesh.share(pat.shape[0], mesh)
+        pat, lens = pat[lo:hi], lens[lo:hi]
     scan = _scan_on_card if search._on_card(fmi) else _scan_on_cpu
     fm, fp, bm, bp = scan(fmi, pat, lens, min_anchor, cfg.search_batch)
+    if mesh is not None:
+        with pmesh.merging():
+            fm, fp, bm, bp = pmesh.gather_batch(
+                mesh, np.stack([fm, fp, bm, bp], axis=1)).T
     paired = (fm > 0) & (bm > 0) & (np.abs(fp - bp) < pair_window)
     return dict(fwd_matches=fm, fwd_pos=fp, rev_matches=bm, rev_pos=bp,
                 paired=paired)

@@ -237,22 +237,37 @@ def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
     ``capped`` (reads re-run on the host at the cap) and ``max_iters``
     (the most iterations a read ran).
 
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1): each rank
+    runs the engine on its contiguous share of the reads
+    (``parallel.mesh.share``; an empty share when there are fewer reads
+    than ranks) on its own device, one K9 launch a chunk, and one
+    all-gather along 'dp' gives every rank the whole array in read order,
+    equal to the single-device run's.  A mesh with tp > 1 raises
+    NotImplementedError.
+
     The cyclic garbage collector is paused for the call: the engine
     allocates no cycles."""
     import gc
 
     if mesh is not None:
-        raise NotImplementedError(
-            "rna_seq(mesh=...) is not ported (ROADMAP Queue 1: "
-            "multi-device)")
+        from bwt_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.require_dp(mesh, "rna_seq")
+        fmi = pmesh.replicate_index(fmi, mesh)
+        lo, hi = pmesh.share(len(reads), mesh)
+        reads = reads[lo:hi]
     was_enabled = gc.isenabled()
     gc.disable()
     try:
-        return _rna_seq_device_inner(fmi, reads, config=config,
-                                     service=service)
+        res = _rna_seq_device_inner(fmi, reads, config=config,
+                                    service=service)
     finally:
         if was_enabled:
             gc.enable()
+    if mesh is None:
+        return res
+    with pmesh.merging():
+        return pmesh.gather_batch(mesh, res)
 
 
 def _rna_seq_device_inner(fmi, reads, *, config=None, service=None):
@@ -364,15 +379,13 @@ def rna_seq(fmi: FMIndex, reads, *, config=None, service=None,
     takes the automaton when it can run (the index has ``isa_samples`` and
     ``cont_cutoff + 6 <= 32``), as ``bwt_tpu`` does.  The results are the
     same either way, and equal the JAX package's for either of its
-    engines.  ``mesh`` is not ported yet."""
+    engines.  ``mesh`` shards the reads over its 'dp' axis
+    (:func:`rna_seq_device`) and needs the device engine (ValueError
+    otherwise)."""
     from bwt_tpu_torch.config import DEFAULT
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "rna_seq(mesh=...) is not ported (ROADMAP Queue 1: "
-            "multi-device)")
     cfg = config or (service.config if service is not None else DEFAULT)
     if cfg.elastic_fallback:
         raise NotImplementedError(
@@ -381,8 +394,12 @@ def rna_seq(fmi: FMIndex, reads, *, config=None, service=None,
     use_dev = engine == "device" or (
         engine == "auto" and fmi.isa_samples is not None
         and cfg.rnaseq_cont_cutoff + 6 <= 32)
+    if mesh is not None and not use_dev:
+        raise ValueError("mesh= requires the device engine "
+                         "(an index with isa_samples)")
     if use_dev:
-        return rna_seq_device(fmi, reads, config=cfg, service=service)
+        return rna_seq_device(fmi, reads, config=cfg, service=service,
+                              mesh=mesh)
     svc = service if service is not None else QueryService(fmi, config=cfg)
     svc.reset_reads()
     gens = []

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--out FILE]
     python3 chip_smoke.py --rna-walls N   # rna_seq's device-engine wall alone
+    python3 chip_smoke.py --mesh-only 25  # phase 11 alone, at 2^25 bases
 
-Phases, one output line each (phases 2 and 7 one per case, phase 10 three), every number beside
+Phases, one output line each (phases 2 and 7 one per case, phase 10 three, phase 11 six a world), every number beside
 the card's name and power limit:
   0. the card (torch and nvidia-smi);
   1. the CUDA kernel build from csrc/ (nvcc, one per source, in parallel),
@@ -107,6 +108,24 @@ the card's name and power limit:
      isa_samples (the host engine's unc_sa_range chunk scan, K4's
      path), equal; and 4,096 isa_range requests through the executor (K6's
      path), every row walked back to its position;
+  11. the mesh (bwt_tpu_torch.parallel), in child processes so that this
+     process's state is untouched (``--mesh-child``; each rank's log in
+     build/chip_smoke/mesh/): a world of one rank over NCCL, then four
+     ranks sharing the card over gloo (NCCL takes one rank a card), every
+     rank a process on cuda:0 with every collective under a timeout.  Each
+     rank builds the 2^25-base index with the sharded suffix sort over a
+     tp = world mesh (one rank takes the single-device sort), its SA and
+     every index array equal to phase 3's, with the sort's and the
+     finish's peak device memory apart; then, over a dp = world mesh and
+     twice each, sharded_search_step + gather_hits on phase 4's 30-mers
+     (K3 and K4 a rank), search_reads on phase 8's reads (anchor_scan),
+     align_reads on phase 5's substitution and indel reads (K10, K11a,
+     K11b; the first run of a process also K5 for its seed table) and
+     rna_seq on phase 10's reads (K9), each equal on every rank to this
+     process's single-device run, with each rank's launches, wall, the
+     merge's share of it (parallel.mesh.MERGE_S) and the bytes the gloo
+     collectives staged through the host (STAGED_BYTES).  A failed or
+     overrunning rank fails the phase;
   9. one torch.profiler window over each exact-search path and over
      the device engines of rna_seq and single_align, last because the
      profiler slows every later launch of its process: locate plain and
@@ -114,9 +133,9 @@ the card's name and power limit:
      splits into host encode, upload, kernels and download, rna_seq (K9,
      uploads, downloads) and single_align's 2^16 reads (K10, K11a, K11b,
      uploads, downloads, the rest).
-Each path of phases 4, 5, 8 and 10, and each CLI run in process of phase
-6, runs with the kernels' launch counts set to 0 just before it and read
-just after; a kernel's ``launches`` are those of the paths that run it and
+Each path of phases 4, 5, 8 and 10, each CLI run in process of phase
+6, and each rank's run of each path of phase 11 runs with the kernels'
+launch counts set to 0 just before it and read just after; a kernel's ``launches`` are those of the paths that run it and
 never those of a comparison (the standalone fill's are the batched
 aligners': single_align fills inside the
 stitch kernels; K4's are the unc_sa_range scan's: the service kernel walks
@@ -757,11 +776,11 @@ def phase_build(codes_np, device, tag):
                      peak_gib=peak / 2**30, build_verify_s=dtv)
 
 
-def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
+def phase_locate(fmi, codes_np, rng, nq, tag, plen=30, keep=None):
     """Phase 4: locate random k-mers, plain and seeded, one launch of the
     fused kernel a call, every position checked; count_matches through
     the standalone K3.  Returns the report, the seed table and the
-    patterns."""
+    patterns; the plain positions and the counts go to ``keep``."""
     import numpy as np
     import torch
 
@@ -810,6 +829,8 @@ def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
                 f"a located position ({name}) does not hold its pattern")
         key = "plain" if st is None else "seeded"
         report[key] = dict(s=dt, per_s=nq / dt, first_s=walls[0], launches=1)
+        if keep is not None and st is None:
+            keep["locate_pos"] = pos.cpu().numpy()
         print(f"phase 4 locate {nq} x {plen}-mers ({name}): all positions "
               f"checked, {nq / dt:.1f} locates/s ({dt:.6f} s; the first call "
               f"at this size, which also allocates, {walls[0]:.6f} s), "
@@ -824,6 +845,8 @@ def phase_locate(fmi, codes_np, rng, nq, tag, plen=30):
     require(bool((counts >= 1).all()), "a pattern cut from the genome has "
                                        "no match")
     report["count_matches"] = dict(s=dt, per_s=nq / dt, bs_launches=1)
+    if keep is not None:
+        keep.update(counts=counts.cpu().numpy(), kmers=(pats, lens))
     print(f"phase 4 count_matches {nq} x {plen}-mers: every count >= 1, "
           f"{nq / dt:.1f} patterns/s ({dt:.6f} s), K3 launches 1 {tag}",
           flush=True)
@@ -913,7 +936,7 @@ def check_sam(text: str, results, reads, ref_name: str) -> None:
 
 
 def phase_align(fmi, codes_np, rng, nreads, tag, workdir: Path,
-                nindel=4096, subset=512, forced=4096):
+                nindel=4096, subset=512, forced=4096, keep=None):
     """Phase 5: single_align through align_reads on bench.py's reads (80 bp,
     one substitution each) and on reads with one indel each: the default
     engine, the device automaton and its phase B, against the host engine
@@ -966,6 +989,9 @@ def phase_align(fmi, codes_np, rng, nreads, tag, workdir: Path,
 
     runs = {what: device_engine(what, batch)
             for what, batch in (("subst", reads), ("indel", ireads))}
+    if keep is not None:  # the reads and their results, for phase 11
+        keep["align"] = {what: (batch, _norm(runs[what]["res"])) for what, batch
+                         in (("subst", reads), ("indel", ireads))}
 
     # the substitution reads from a FastQ file, as the CLI reads one: the
     # C++ loader, then the default engine with strands and the SAM text
@@ -3271,7 +3297,7 @@ def _automaton_case(fmi, svc, reads, tag, latency_us, variants) -> dict:
 
 def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
                   forms, read_len=50, subset=1024, forced=4096, no_isa=4096,
-                  nwindows=4096):
+                  nwindows=4096, keep=None):
     """Phase 10: rna_seq on reads cut from the genome with one base
     complemented (the self-benchmark of rnaseqtest.c:313-327): the device
     automaton ("auto"), then the host engine on the same reads, whose
@@ -3331,6 +3357,8 @@ def phase_rna_seq(fmi, codes_np, rng, nreads, tag, latency_us, variants,
         walls.append(time.perf_counter() - t0)
         require(np.array_equal(again, pos), "rna_seq changed on a rerun")
     wall = float(np.median(walls))
+    if keep is not None:
+        keep["rna_seq"] = (reads, pos)
     require(pos.shape == (nreads,) and bool((pos >= -1).all())
             and bool((pos <= len(codes_np)).all()),
             "rna_seq returned a position outside [-1, n]")
@@ -3645,7 +3673,7 @@ def rna_profile(n=RNA_WALLS, seed=0, nreads=1 << 16, read_len=50,
 
 
 def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
-                       subset=8192):
+                       subset=8192, keep=None):
     """Phase 8: search_reads on unmutated reads cut from the genome."""
     import numpy as np
 
@@ -3683,6 +3711,8 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
                 f"search_reads {k} differs between the kernels and the "
                 f"plain versions on the {subset}-read subset")
     paired = int(res["paired"].sum())
+    if keep is not None:
+        keep["search_reads"] = (reads, res)
     print(f"phase 8 search_reads {nreads} x {read_len} bp ({reads.dtype} "
           f"codes): all forward reads anchored at their origin, {paired} "
           f"paired, {nreads / dt:.1f} reads/s ({dt:.4f} s; the first call at "
@@ -3693,6 +3723,347 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
           f"({plain_s:.3f} s) {tag}", flush=True)
     return dict(n=nreads, s=dt, per_s=nreads / dt, first_s=walls[0],
                 launches=launches[0], chunks=chunks, paired=paired), reads
+
+
+# --------------------------------------------------------------------------
+# phase 11: the mesh (bwt_tpu_torch.parallel), in child processes
+# --------------------------------------------------------------------------
+
+MESH_WORLDS = (("nccl", 1), ("gloo", 4))  # backend, ranks, all on cuda:0
+MESH_TIMEOUT_S = 300  # every collective's bound, and a world's wall
+MESH_COUNTS = (("K3", "search", "BS_LAUNCHES"),
+               ("K4", "search", "UNC_LAUNCHES"),
+               ("anchor_scan", "search", "ANCHOR_LAUNCHES"),
+               ("K10", "automaton", "ALIGN_LAUNCHES"),
+               ("K11a", "dp_wavefront", "LOG_STITCH_LAUNCHES"),
+               ("K11b", "compose", "COMPOSE_LAUNCHES"),
+               ("K9", "automaton", "AUTOMATON_LAUNCHES"),
+               ("K5", "search", "SEED_LAUNCHES"))
+# the kernels each path must launch on every rank, in each of its runs
+MESH_NEEDS = {"search_step": ("K3", "K4"), "search_reads": ("anchor_scan",),
+              "align_subst": ("K10", "K11a", "K11b"),
+              "align_indel": ("K10", "K11a", "K11b"), "rna_seq": ("K9",)}
+
+
+def _mesh_counts(zero=False) -> dict:
+    """The launch counts the mesh phase reads, set to 0 with ``zero``."""
+    import importlib
+
+    out = {}
+    for key, mod, name in MESH_COUNTS:
+        m = importlib.import_module(f"bwt_tpu_torch.ops.{mod}")
+        if zero:
+            setattr(m, name, 0)
+        out[key] = getattr(m, name)
+    return out
+
+
+def _mesh_inputs(workdir: Path, fmi, codes_np, keep) -> None:
+    """Phase 3's index, genome and SA, and phases 4, 5, 8 and 10's inputs
+    with their single-device outputs, written for the ranks."""
+    import pickle
+
+    import numpy as np
+
+    from bwt_tpu_torch.ops import suffix
+
+    np.savez(workdir / "index.npz", **fmi.to_numpy())
+    np.save(workdir / "genome.npy", codes_np)
+    np.save(workdir / "sa.npy", suffix.suffix_array(codes_np,
+                                                    device=fmi.device)
+            .cpu().numpy())
+    pats, lens = keep["kmers"]
+    np.savez(workdir / "search_step.npz", pats=pats.cpu().numpy(),
+             lens=lens.cpu().numpy(), pos=keep["locate_pos"],
+             counts=keep["counts"])
+    np.savez(workdir / "search_reads.npz", reads=keep["search_reads"][0],
+             **keep["search_reads"][1])
+    (workdir / "align.pkl").write_bytes(pickle.dumps(keep["align"]))
+    np.savez(workdir / "rna_seq.npz", reads=keep["rna_seq"][0],
+             pos=keep["rna_seq"][1])
+
+
+def _mesh_rank(workdir: Path, world: int, device="cuda:0") -> dict:
+    """One rank's run of the mesh phase: the sharded build over a tp =
+    world mesh, then the four serving paths over a dp = world mesh, each
+    twice (its first run in this process, then again), every output held
+    to the single-device run's, tolerance 0."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch import parallel
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.parallel import mesh as pmesh
+    from bwt_tpu_torch.parallel import suffix_dist
+
+    dev = torch.device(device)
+    serve = parallel.make_mesh(world, tp=1, device=dev)
+    build = parallel.make_mesh(world, tp=world, device=dev)
+    out = dict(rank=dist.get_rank(), paths={})
+    codes = np.load(workdir / "genome.npy")
+
+    # the build first, on a device that holds nothing else yet: the sort's
+    # and the finish's peaks apart (build_index_sharded's two calls)
+    rec, sort = {}, suffix_dist.sharded_suffix_array
+
+    def sort_clocked(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        sa = sort(*a, **kw)
+        torch.cuda.synchronize()
+        rec.update(sort_s=time.perf_counter() - t, sa=sa,
+                   sort_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   finish_t0=time.perf_counter())
+        torch.cuda.reset_peak_memory_stats()
+        return sa
+
+    suffix_dist.sharded_suffix_array = sort_clocked
+    staged = pmesh.STAGED_BYTES
+    try:
+        dist.barrier()
+        t0 = time.perf_counter()
+        built = suffix_dist.build_index_sharded(codes, build, axis="tp",
+                                                sa_sample_rate=4)
+        torch.cuda.synchronize()
+    finally:
+        suffix_dist.sharded_suffix_array = sort
+    t1 = time.perf_counter()
+    require(np.array_equal(rec.pop("sa"), np.load(workdir / "sa.npy")),
+            "the sharded SA differs from the single-device SA")
+    with np.load(workdir / "index.npz") as want:
+        got = built.to_numpy()
+        bad = [k for k in want.files if not np.array_equal(got[k], want[k])]
+    require(not bad, f"build_index_sharded's {bad} differ from phase 3's")
+    out["build"] = dict(s=t1 - t0, finish_s=t1 - rec.pop("finish_t0"),
+                        finish_peak_gib=torch.cuda.max_memory_allocated()
+                        / 2**30, staged=pmesh.STAGED_BYTES - staged, **rec)
+    del built
+    torch.cuda.empty_cache()
+
+    fmi = parallel.replicate_index(
+        bwt_tpu_torch.read_npz_index(workdir / "index.npz", device=dev),
+        serve)
+    step = dict(np.load(workdir / "search_step.npz"))
+    sr = dict(np.load(workdir / "search_reads.npz"))
+    sr_reads = sr.pop("reads")
+    align = pickle.loads((workdir / "align.pkl").read_bytes())
+    rna = dict(np.load(workdir / "rna_seq.npz"))
+    svc, rsvc = QueryService(fmi, codes), QueryService(fmi)
+
+    def search_step():
+        p, ln = parallel.shard_patterns(step["pats"], step["lens"], serve)
+        pos, counts, total = parallel.sharded_search_step(fmi, p, ln, serve)
+        return (parallel.gather_hits(pos, serve),
+                parallel.host_fetch([counts], serve)[0], int(total))
+
+    def step_ok(got):
+        return (np.array_equal(got[0], step["pos"])
+                and np.array_equal(got[1], step["counts"])
+                and got[2] == int((step["pos"] >= 0).sum()))
+
+    def aligned(kind):
+        return lambda: _norm(aligner.align_reads(
+            fmi, codes, align[kind][0], service=svc, with_strand=True,
+            mesh=serve))
+
+    paths = (
+        ("search_step", search_step, step_ok),
+        ("search_reads", lambda: exact.search_reads(fmi, sr_reads,
+                                                    mesh=serve),
+         lambda got: all(np.array_equal(got[k], sr[k]) for k in sr)),
+        ("align_subst", aligned("subst"),
+         lambda got: got == align["subst"][1]),
+        ("align_indel", aligned("indel"),
+         lambda got: got == align["indel"][1]),
+        ("rna_seq", lambda: rnaseq.rna_seq(fmi, rna["reads"], service=rsvc,
+                                           mesh=serve),
+         lambda got: np.array_equal(got, rna["pos"])))
+    for name, fn, ok in paths:
+        runs = []
+        for _ in range(2):
+            dist.barrier()
+            _mesh_counts(zero=True)
+            merge, staged = pmesh.MERGE_S, pmesh.STAGED_BYTES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _mesh_counts()
+            require(ok(got), f"{name} over the mesh differs from the "
+                             f"single-device run")
+            runs.append(dict(s=wall, merge_s=pmesh.MERGE_S - merge,
+                             staged=pmesh.STAGED_BYTES - staged,
+                             launches=counts))
+            missing = [k for k in MESH_NEEDS[name] if counts[k] == 0]
+            require(not missing, f"{name}: rank {out['rank']} launched no "
+                                 f"{missing} ({counts})")
+        out["paths"][name] = runs
+    require(out["paths"]["align_subst"][0]["launches"]["K5"] == 1,
+            "the first aligner run did not build its seed table by one K5 "
+            "launch")
+    dist.barrier()
+    return out
+
+
+def mesh_child(workdir: Path, backend: str, world: int, rank: int) -> int:
+    """A rank of the mesh phase (``--mesh-child``): joins the world, runs
+    :func:`_mesh_rank` and writes its JSON beside the inputs."""
+    import torch.distributed as dist
+
+    from bwt_tpu_torch import parallel
+
+    parallel.init_distributed(
+        backend=backend, init_method=f"file://{workdir}/rdv_{backend}{world}",
+        world_size=world, rank=rank, timeout=MESH_TIMEOUT_S)
+    try:
+        out = _mesh_rank(workdir, world)
+        (workdir / f"rank_{backend}{world}_{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_world(workdir: Path, backend: str, world: int) -> list:
+    """Start a world's ranks together (``chip_smoke.py --mesh-child``),
+    wait for all; a rank that fails or overruns fails the phase, and the
+    ranks still running are killed.  Returns each rank's JSON."""
+    procs = []
+    try:
+        for r in range(world):
+            with open(workdir / f"rank_{backend}{world}_{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mesh-child", str(workdir), "--mesh-backend", backend,
+                     "--mesh-world", str(world), "--mesh-rank", str(r)],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT_S + 60
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # the others would wait in a collective
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        log = (workdir / f"rank_{backend}{world}_{bad[0]}.log").read_text()
+        raise SmokeFailure(f"mesh {backend} x {world}: ranks {bad} failed or "
+                           f"ran past {MESH_TIMEOUT_S + 60} s; rank "
+                           f"{bad[0]}'s log ends:\n{log[-3000:]}")
+    return [json.loads((workdir / f"rank_{backend}{world}_{r}.json")
+                       .read_text()) for r in range(world)]
+
+
+def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib):
+    """Phase 11: bwt_tpu_torch.parallel on the card, in child processes
+    (the parent's state untouched): a world of one rank over NCCL, then
+    four ranks sharing the card over gloo, each rank a process of its own
+    on cuda:0.  Every rank builds the 2^25-base index with the sharded sort
+    (tp = world; one rank takes the single-device sort) and holds its SA
+    and arrays to phase 3's, then runs sharded_search_step + gather_hits on
+    phase 4's 30-mers, search_reads, align_reads (both kinds of read) and
+    rna_seq with mesh= (dp = world), each equal to the single-device run
+    of phases 4, 5, 8 and 10 on every rank."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    _mesh_inputs(workdir, fmi, codes_np, keep)
+    report = dict(inputs_s=time.perf_counter() - t0, worlds={})
+    for backend, world in MESH_WORLDS:
+        t1 = time.perf_counter()
+        ranks = mesh_world(workdir, backend, world)
+        wall = time.perf_counter() - t1
+        report["worlds"][f"{backend}x{world}"] = dict(s=wall, ranks=ranks)
+        shared = ("; the ranks share one card, so these walls are no "
+                  "scaling number" if world > 1 else "")
+        b = [r["build"] for r in ranks]
+        print(f"phase 11 mesh {backend} x {world} ({wall:.1f} s with the "
+              f"processes' start): build_index_sharded n={len(codes_np)} "
+              f"sa_rate=4 over tp={world}: the SA and every index array "
+              f"equal to phase 3's on every rank; per rank: sort "
+              + ", ".join(f"{x['sort_s']:.3f}" for x in b) + " s, peak "
+              + ", ".join(f"{x['sort_peak_gib']:.3f}" for x in b)
+              + " GiB; finish " + ", ".join(f"{x['finish_s']:.3f}" for x in b)
+              + " s, peak " + ", ".join(f"{x['finish_peak_gib']:.3f}"
+                                        for x in b)
+              + f" GiB (phase 3's single-device build: peak "
+                f"{build_peak_gib:.3f} GiB); staged "
+              + ", ".join(str(x["staged"]) for x in b) + f" bytes{shared} "
+              f"{tag}", flush=True)
+        for name in MESH_NEEDS:
+            per = [r["paths"][name] for r in ranks]
+            shown = MESH_NEEDS[name] + (("K5",) if name == "align_subst"
+                                        else ())
+            print(f"phase 11 mesh {backend} x {world} {name}: equal to the "
+                  f"single-device run on every rank; per rank, first run / "
+                  f"second: wall " + ", ".join(
+                      f"{a['s']:.4f} / {w['s']:.4f}" for a, w in per)
+                  + " s, the merge's share " + ", ".join(
+                      f"{a['merge_s'] / a['s']:.3f} / "
+                      f"{w['merge_s'] / w['s']:.3f}" for a, w in per)
+                  + ", launches " + "; ".join(
+                      " ".join(f"{k} {a['launches'][k]}/{w['launches'][k]}"
+                               for k in shown) for a, w in per)
+                  + ", staged " + ", ".join(
+                      f"{a['staged']} / {w['staged']}" for a, w in per)
+                  + f" bytes{shared} {tag}", flush=True)
+    return report
+
+
+def mesh_only(bits: int, seed: int = 0) -> dict:
+    """Phase 11 alone (``--mesh-only BITS``): a 2^BITS-base random genome
+    and its index at sa_rate 4, then phase 4, 5, 8 and 10's inputs at their
+    sizes and by their recipes, with their single-device outputs, then the
+    mesh phase on them."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.ops import search
+
+    tag = f"[{card_line()}]"
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    starts = rng.integers(0, len(codes) - 30, size=1 << 20)
+    pats = torch.from_numpy(codes[np.add.outer(starts, np.arange(30))]
+                            .astype(np.int32)).to(dev)
+    lens = torch.full((1 << 20,), 30, dtype=torch.int32, device=dev)
+    keep = dict(kmers=(pats, lens),
+                locate_pos=search.locate(fmi, pats, lens).cpu().numpy(),
+                counts=search.count_matches(fmi, pats, lens).cpu().numpy())
+    svc = QueryService(fmi, codes)
+    keep["align"] = {
+        what: (r, _norm(aligner.align_reads(fmi, codes, r, service=svc,
+                                            with_strand=True)))
+        for what, r in (("subst", mutated_reads(rng, codes, 1 << 16)[1]),
+                        ("indel", indel_reads(rng, codes, 4096)[1]))}
+    starts = rng.integers(0, len(codes) - 50, size=1 << 20)
+    sr = codes[np.add.outer(starts, np.arange(50))]
+    keep["search_reads"] = (sr, exact.search_reads(fmi, sr))
+    rr = complemented_reads(rng, codes, 1 << 16)[1]
+    keep["rna_seq"] = (rr, rnaseq.rna_seq(fmi, rr, service=QueryService(fmi)))
+    return phase_mesh(fmi, codes, keep, tag,
+                      ROOT / "build" / "chip_smoke" / "mesh", peak)
 
 
 def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
@@ -3812,6 +4183,16 @@ def main(argv=None) -> int:
                     help="only profile rna_seq's device engine's host time "
                          "over N runs (rna_profile) and exit; with --out, "
                          "its Chrome trace goes there")
+    ap.add_argument("--mesh-only", type=int, default=0, metavar="BITS",
+                    help="only run phase 11 (the mesh) on a 2^BITS-base "
+                         "genome, its inputs and single-device outputs made "
+                         "here (mesh_only), and exit")
+    ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3820,6 +4201,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.mesh_child:
+        return mesh_child(Path(args.mesh_child), args.mesh_backend,
+                          args.mesh_world, args.mesh_rank)
+    if args.mesh_only:
+        mesh_only(args.mesh_only, seed=args.seed)
+        return 0
     if args.rna_walls:
         rna_walls(args.rna_walls, seed=args.seed)
         return 0
@@ -3875,10 +4262,12 @@ def main(argv=None) -> int:
     report = dict(card=smi, dp=dp_rows, dp_stitch=stitch_rows)
     codes = rng.integers(0, 4, size=1 << 25).astype(np.uint8)
     fmi, report["build"] = phase_build(codes, dev, tag)
+    keep = {}  # the single-device outputs phase 11 holds the mesh to
     report["locate"], table, kmers = phase_locate(fmi, codes, rng, 1 << 20,
-                                                  tag)
+                                                  tag, keep=keep)
     report["align"], recorded, (sub_reads, ind_reads) = phase_align(
-        fmi, codes, rng, 1 << 16, tag, ROOT / "build" / "chip_smoke")
+        fmi, codes, rng, 1 << 16, tag, ROOT / "build" / "chip_smoke",
+        keep=keep)
     report["nw_batch"] = phase_nw_batch(codes, rng, NW_PAIRS, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
     report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
@@ -3895,11 +4284,16 @@ def main(argv=None) -> int:
                          ("indel", ind_reads)], tag, latency_us,
         variants)
     report["search_reads"], reads = phase_search_reads(fmi, codes, rng,
-                                                       1 << 20, tag)
+                                                       1 << 20, tag,
+                                                       keep=keep)
     rna_reads, rna = phase_rna_seq(fmi, codes, rng, 1 << 16, tag, latency_us,
-                                   variants, svc_forms)
+                                   variants, svc_forms, keep=keep)
     report["rna_seq"] = rna
     report["kernels"] += [rna["k9"], *rna["k7"]]
+    report["mesh"] = phase_mesh(fmi, codes, keep, tag,
+                                ROOT / "build" / "chip_smoke" / "mesh",
+                                report["build"]["peak_gib"])
+    del keep
     phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
                    codes, sub_reads)
     del fmi, table, kmers

@@ -1,5 +1,6 @@
-"""bwt_tpu_torch stands alone: importing every one of its modules, and
-running its CLI, loads neither jax nor bwt_tpu."""
+"""bwt_tpu_torch stands alone: importing every one of its modules (the
+multi-device ones of ``bwt_tpu_torch.parallel`` among them), and running
+its CLI, loads neither jax nor bwt_tpu."""
 
 import os
 import subprocess
@@ -28,6 +29,10 @@ HOST = ("bwt_tpu_torch.native", "bwt_tpu_torch.native.loader",
         "bwt_tpu_torch.utils.sam", "bwt_tpu_torch.utils.results",
         "bwt_tpu_torch.utils.profiling")
 
+# the multi-device modules, over torch.distributed
+PARALLEL = ("bwt_tpu_torch.parallel", "bwt_tpu_torch.parallel.mesh",
+            "bwt_tpu_torch.parallel.suffix_dist")
+
 
 def _run(args):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -38,7 +43,7 @@ def _run(args):
 
 def test_port_imports_no_jax():
     out = _run(["-c", _PROBE]).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 27  # every module of the slices was imported
+    assert int(out[0]) >= 30  # every module of the slices was imported
     assert out[1].strip() == "[]"
 
 
@@ -49,7 +54,7 @@ def test_host_modules_are_in_the_walk():
 
     names = {m.name for m in pkgutil.walk_packages(bwt_tpu_torch.__path__,
                                                    "bwt_tpu_torch.")}
-    assert set(HOST) <= names
+    assert set(HOST) <= names and set(PARALLEL) <= names
 
 
 def test_cli_runs_without_jax():
