@@ -46,12 +46,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, bool kTp>
 __global__ void __launch_bounds__(kThreads)
 anchor_scan_kernel(const T* __restrict__ patterns,
                    const int* __restrict__ lengths, int B, int L,
-                   int min_anchor, int reverse, fm::Index ix, fm::Samples sa,
-                   int* __restrict__ out) {
+                   int min_anchor, int reverse, fm::IndexT<kTp> ix,
+                   fm::SamplesT<kTp> sa, int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   // from global memory: a hunt reads its row dozens of times over, from
@@ -97,40 +97,59 @@ anchor_scan_kernel(const T* __restrict__ patterns,
   out[B + b] = pos;
 }
 
-template <typename T>
+template <typename T, bool kTp>
 void launch(const void* patterns, const int* lengths, int B, int L,
-            int min_anchor, int reverse, const fm::Index& ix,
-            const fm::Samples& sa, int* out, cudaStream_t s) {
+            int min_anchor, int reverse, const fm::IndexArgs& ia,
+            const fm::TableArgs& sa, int shift, int length, int* out,
+            cudaStream_t s) {
   const T* p = static_cast<const T*>(patterns);
   const int blocks = (B + kThreads - 1) / kThreads;
-  anchor_scan_kernel<T><<<blocks, kThreads, 0, s>>>(
-      p, lengths, B, L, min_anchor, reverse, ix, sa, out);
+  anchor_scan_kernel<T, kTp><<<blocks, kThreads, 0, s>>>(
+      p, lengths, B, L, min_anchor, reverse, fm::index_form<kTp>(ia),
+      fm::samples_form<kTp>(sa, shift, length), out);
+}
+
+template <bool kTp>
+void launch_elem(const void* patterns, int elem, const int* lengths, int B,
+                 int L, int min_anchor, int reverse, const fm::IndexArgs& ia,
+                 const fm::TableArgs& sa, int shift, int length, int* out,
+                 cudaStream_t s) {
+  if (elem == 4) {
+    launch<int, kTp>(patterns, lengths, B, L, min_anchor, reverse, ia, sa,
+                     shift, length, out, s);
+  } else if (elem == 1) {
+    launch<unsigned char, kTp>(patterns, lengths, B, L, min_anchor, reverse,
+                               ia, sa, shift, length, out, s);
+  } else {
+    launch<signed char, kTp>(patterns, lengths, B, L, min_anchor, reverse, ia,
+                             sa, shift, length, out, s);
+  }
 }
 
 }  // namespace
 
 // patterns (B, L) of `elem`-typed codes (4: int32, 1: uint8, -1: int8) and
-// lengths (B,) int32, contiguous, on the device; out (2B + 4,) int32 with
-// its last four entries zero.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or -1 for an unknown `elem`.
+// lengths (B,) int32, contiguous, on the device; the index as
+// fm::IndexArgs and the SA samples as fm::TableArgs (per > 0: a tp view);
+// out (2B + 4,) int32 with its last four entries zero.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or -1 for an
+// unknown `elem`.
 extern "C" int anchor_scan_launch(
     const void* patterns, int elem, const int* lengths, int B, int L,
-    int min_anchor, int reverse, const int* buckets, int nrows, const int* C,
-    const int* endloc, const int* sa_samples, int nsamples, int shift,
-    int length, int* out, void* stream) {
+    int min_anchor, int reverse, const void* buckets, int nrows, int per,
+    const int* C, const int* endloc, const void* sa_samples, int nsamples,
+    int sa_per, int shift, int length, int* out, void* stream) {
   if (elem != 4 && elem != 1 && elem != -1) return -1;
   if (B <= 0) return 0;
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const fm::Samples sa{sa_samples, nsamples, shift, length};
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs sa{sa_samples, nsamples, sa_per};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) {
-    launch<int>(patterns, lengths, B, L, min_anchor, reverse, ix, sa, out, s);
-  } else if (elem == 1) {
-    launch<unsigned char>(patterns, lengths, B, L, min_anchor, reverse, ix, sa,
-                          out, s);
+  if (per > 0) {
+    launch_elem<true>(patterns, elem, lengths, B, L, min_anchor, reverse, ia,
+                      sa, shift, length, out, s);
   } else {
-    launch<signed char>(patterns, lengths, B, L, min_anchor, reverse, ix, sa,
-                        out, s);
+    launch_elem<false>(patterns, elem, lengths, B, L, min_anchor, reverse, ia,
+                       sa, shift, length, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,14 +34,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTile>
+template <bool kTile, bool kTp>
 __global__ void __launch_bounds__(kThreads)
 backward_search_kernel(const int* __restrict__ patterns,
                        const int* __restrict__ lengths, int B, int L,
                        int steps, int resolve_n, int mode,
                        const int* __restrict__ init_start,
                        const int* __restrict__ init_end, fm::SeedRows seed,
-                       fm::Index ix, int* __restrict__ out) {
+                       fm::IndexT<kTp> ix, int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   fm::PatternView<int, kTile> pat(patterns, B, b, L);
   if (b >= B) return;
@@ -60,32 +60,46 @@ backward_search_kernel(const int* __restrict__ patterns,
   out[7 * B + b] = r.eff;
 }
 
-}  // namespace
-
-// patterns (B, L) and lengths (B,) int32, contiguous, on the device;
-// init_start / init_end (B,) for mode 1, seed_rows (seed_nrows, 6) for
-// mode 2 (null otherwise); out (8, B) int32.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
-extern "C" int backward_search_launch(
-    const int* patterns, const int* lengths, int B, int L, int steps,
-    int resolve_n, int mode, const int* init_start, const int* init_end,
-    const int* seed_rows, int seed_nrows, int seed_k, const int* buckets,
-    int nrows, const int* C, const int* endloc, int* out, void* stream) {
-  if (B <= 0) return 0;
-  const fm::Index ix{buckets, nrows, C, endloc};
+template <bool kTp>
+int launch(const int* patterns, const int* lengths, int B, int L, int steps,
+           int resolve_n, int mode, const int* init_start,
+           const int* init_end, const fm::SeedRows& seed,
+           const fm::IndexArgs& ia, int* out, cudaStream_t s) {
+  const fm::IndexT<kTp> ix = fm::index_form<kTp>(ia);
   const int blocks = (B + kThreads - 1) / kThreads;
-  const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = fm::tile_bytes(backward_search_kernel<true>, kThreads,
-                                     L * sizeof(int));
+  const size_t smem = fm::tile_bytes(backward_search_kernel<true, kTp>,
+                                     kThreads, L * sizeof(int));
   if (smem) {
-    backward_search_kernel<true><<<blocks, kThreads, smem, s>>>(
+    backward_search_kernel<true, kTp><<<blocks, kThreads, smem, s>>>(
         patterns, lengths, B, L, steps, resolve_n, mode, init_start, init_end,
         seed, ix, out);
   } else {
-    backward_search_kernel<false><<<blocks, kThreads, 0, s>>>(
+    backward_search_kernel<false, kTp><<<blocks, kThreads, 0, s>>>(
         patterns, lengths, B, L, steps, resolve_n, mode, init_start, init_end,
         seed, ix, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// patterns (B, L) and lengths (B,) int32, contiguous, on the device;
+// init_start / init_end (B,) for mode 1, seed_rows (seed_nrows, 6) for
+// mode 2 (null otherwise); the index as fm::IndexArgs (per > 0: a tp
+// view); out (8, B) int32.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int backward_search_launch(
+    const int* patterns, const int* lengths, int B, int L, int steps,
+    int resolve_n, int mode, const int* init_start, const int* init_end,
+    const int* seed_rows, int seed_nrows, int seed_k, const void* buckets,
+    int nrows, int per, const int* C, const int* endloc, int* out,
+    void* stream) {
+  if (B <= 0) return 0;
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return per > 0 ? launch<true>(patterns, lengths, B, L, steps, resolve_n,
+                                mode, init_start, init_end, seed, ia, out, s)
+                 : launch<false>(patterns, lengths, B, L, steps, resolve_n,
+                                 mode, init_start, init_end, seed, ia, out, s);
 }

@@ -18,22 +18,110 @@
 // C[c] for c outside 0..4.  eq_mask takes c as uint32 times 0x55555555
 // (mod 2^32), so an unresolved N (c = 5) gives the same defined bits as
 // the plain version.
+//
+// The tp form.  A tp view (parallel.shard_index) cuts the bucket table into
+// tp blocks of `per` rows, one a rank, each on its own card or in its own
+// allocation; the kernels read it through IndexTp, a device array of the
+// blocks' pointers (the peers' blocks mapped into this process,
+// csrc/peer.cu).  load_row keeps its order of work: a negative row index
+// wraps by the global row count, anything still outside the table reads
+// kNoRow, and only then is the row split into (block b / per, row b % per),
+// so an out-of-contract index reads what the replicated kernel reads.  The
+// form is a template parameter of every kernel (IndexT<kTp>), not a runtime
+// branch: the replicated instantiations keep their instructions.  What
+// bounds the tp form: on one card, the split (a wide multiply by the
+// reciprocal of per, BlockDiv, in place of a divide, which cost the
+// latency-bound kernels more than the pointer load did, PERF.md) and the
+// pointer-table load a row adds to the chain of dependent loads, and the
+// cost of reading a block another process mapped (IPC) rather than
+// allocated; across cards, NVLink's latency on (tp - 1) / tp of the row
+// loads, which is not measured yet.  A peer's block is read-only for the
+// life of the view, so the loads stay __ldg.
 
 #pragma once
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
+#include <stddef.h>
 
 namespace fm {
 
 // The index as the kernels see it: the bucket table, C and endloc, all in
-// device memory.
-struct Index {
+// device memory; IndexT<true> the tp form (see the head of the file).
+template <bool kTp>
+struct IndexT;
+
+template <>
+struct IndexT<false> {
   const int* buckets;  // (nrows, 8) int32, row-major
   int nrows;
   const int* C;       // (5,) int32
   const int* endloc;  // () int32
 };
+
+// b / per for a row number 0 <= b < 2^31, as one wide multiply and a
+// shift: with l = ceil(log2 per) and magic = ceil(2^(31 + l) / per),
+// (b * magic) >> (31 + l) is b / per for every such b.
+struct BlockDiv {
+  unsigned magic;
+  int shift;
+};
+
+inline BlockDiv block_div(int per) {
+  int l = 0;
+  while ((1ll << l) < per) ++l;
+  const unsigned long long p = static_cast<unsigned long long>(per);
+  return BlockDiv{static_cast<unsigned>(((1ull << (31 + l)) + p - 1) / p),
+                  31 + l};
+}
+
+__device__ __forceinline__ int block_index(const BlockDiv d, int b) {
+  return static_cast<int>(
+      (static_cast<unsigned long long>(static_cast<unsigned>(b)) * d.magic) >>
+      d.shift);
+}
+
+template <>
+struct IndexT<true> {
+  const int* const* blocks;  // (tp,) device pointers, each (per, 8) int32
+  int nrows;                 // the rows of the whole table
+  int per;                   // the rows a block holds
+  BlockDiv div;              // b / per
+  const int* C;
+  const int* endloc;
+};
+
+using Index = IndexT<false>;
+using IndexTp = IndexT<true>;
+
+// The index as every launch function receives it (search._index_args):
+// per == 0, `buckets` is the table of nrows rows; per > 0, a device array
+// of the tp blocks' pointers, nrows the whole table's rows.
+struct IndexArgs {
+  const void* buckets;
+  int nrows;
+  int per;
+  const int* C;
+  const int* endloc;
+};
+
+template <bool kTp>
+inline IndexT<kTp> index_form(const IndexArgs& a) {
+  if constexpr (kTp) {
+    return IndexTp{static_cast<const int* const*>(a.buckets), a.nrows, a.per,
+                   block_div(a.per), a.C, a.endloc};
+  } else {
+    return Index{static_cast<const int*>(a.buckets), a.nrows, a.C, a.endloc};
+  }
+}
+
+// Block `blk`'s pointer from a device array of them.
+template <typename T>
+__device__ __forceinline__ const T* block_of(const int* const* blocks, int blk) {
+  return reinterpret_cast<const T*>(static_cast<uintptr_t>(
+      __ldg(reinterpret_cast<const unsigned long long*>(blocks) + blk)));
+}
 
 struct Row {
   int occ[4];
@@ -56,7 +144,8 @@ struct Consts {
   int endloc;
 };
 
-__device__ __forceinline__ Consts load_consts(const Index& ix) {
+template <bool kTp>
+__device__ __forceinline__ Consts load_consts(const IndexT<kTp>& ix) {
   Consts k;
   k.C = ix.C;
   k.endloc = __ldg(ix.endloc);
@@ -85,14 +174,28 @@ __device__ __forceinline__ int adjust(int endloc, int idx) {
 static __device__ const int4 kNoRow[2] = {
     {INT_MIN, INT_MIN, INT_MIN, INT_MIN}, {INT_MIN, INT_MIN, INT_MIN, INT_MIN}};
 
+// The row a bucket number reads: the table's row b, or kNoRow outside it.
+__device__ __forceinline__ const int4* row_ptr(const Index& ix, int b) {
+  return static_cast<unsigned>(b) < static_cast<unsigned>(ix.nrows)
+      ? reinterpret_cast<const int4*>(ix.buckets) + 2 * static_cast<size_t>(b)
+      : kNoRow;
+}
+
+// The tp form: checked against the whole table first, then split.
+__device__ __forceinline__ const int4* row_ptr(const IndexTp& ix, int b) {
+  if (static_cast<unsigned>(b) >= static_cast<unsigned>(ix.nrows)) return kNoRow;
+  const int blk = block_index(ix.div, b);
+  return block_of<int4>(ix.blocks, blk) +
+         2 * static_cast<size_t>(b - blk * ix.per);
+}
+
 // The bucket row covering adjusted index i: two 16-byte loads.
-__device__ __forceinline__ Row load_row(const Index& ix, int i) {
+template <bool kTp>
+__device__ __forceinline__ Row load_row(const IndexT<kTp>& ix, int i) {
   int b = i >> 6;  // arithmetic shift, like the int32 tensors'
   if (b < 0) b += ix.nrows;
   Row row;
-  const int4* p = static_cast<unsigned>(b) < static_cast<unsigned>(ix.nrows)
-      ? reinterpret_cast<const int4*>(ix.buckets) + 2 * static_cast<size_t>(b)
-      : kNoRow;
+  const int4* p = row_ptr(ix, b);
   const int4 lo = __ldg(p);
   const int4 hi = __ldg(p + 1);
   row.occ[0] = lo.x; row.occ[1] = lo.y; row.occ[2] = lo.z; row.occ[3] = lo.w;
@@ -146,19 +249,22 @@ __device__ __forceinline__ int row_char(const Row& row, int r) {
 }
 
 // rank(c, idx) with the sentinel skip (rank.rank).
-__device__ __forceinline__ int rank(const Index& ix, const Consts k, int c, int idx) {
+template <bool kTp>
+__device__ __forceinline__ int rank(const IndexT<kTp>& ix, const Consts k, int c, int idx) {
   const int i = adjust(k.endloc, idx);
   return row_rank(load_row(ix, i), c, i & 63);
 }
 
 // All four ranks at idx (rank.ranks_all4).
-__device__ __forceinline__ void ranks_all4(const Index& ix, const Consts k, int idx, int out[4]) {
+template <bool kTp>
+__device__ __forceinline__ void ranks_all4(const IndexT<kTp>& ix, const Consts k, int idx, int out[4]) {
   const int i = adjust(k.endloc, idx);
   row_ranks_all4(load_row(ix, i), i & 63, out);
 }
 
 // LF-mapping (seqindex.c:214-219), lf(endloc) == 0.
-__device__ __forceinline__ int lf(const Index& ix, const Consts k, int idx) {
+template <bool kTp>
+__device__ __forceinline__ int lf(const IndexT<kTp>& ix, const Consts k, int idx) {
   const int i = adjust(k.endloc, idx);
   const Row row = load_row(ix, i);
   const int r = i & 63;

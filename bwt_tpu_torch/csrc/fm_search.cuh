@@ -234,7 +234,8 @@ __device__ __forceinline__ int seed_key(View& pat, int len, int k) {
 // empty one.  With resolve_n an N (code 5) first becomes the symbol with
 // the most occurrences in the current interval, first maximum winning
 // (seqindex.c:330-340); without, it steps with rank(5) as it is.
-__device__ __forceinline__ void lf_step(const Index& ix, const Consts k,
+template <bool kTp>
+__device__ __forceinline__ void lf_step(const IndexT<kTp>& ix, const Consts k,
                                         Lane& r, int c, bool resolve_n) {
   const int is = adjust(k.endloc, r.start);
   const int ie = adjust(k.endloc, r.end);
@@ -304,8 +305,8 @@ __device__ __forceinline__ void load_seed_row(const SeedRows& seed, int key,
 // and t <= eff_len-1, for t < steps.  With resolve_n an N (code 5) becomes
 // the symbol with the most occurrences in the current interval, first
 // maximum winning (seqindex.c:330-340).
-template <typename View>
-__device__ __forceinline__ Lane search_lane(const Index& ix, const Consts k,
+template <bool kTp, typename View>
+__device__ __forceinline__ Lane search_lane(const IndexT<kTp>& ix, const Consts k,
                                             View& pat, int len,
                                             int steps, bool resolve_n, int mode,
                                             int init_start, int init_end,
@@ -344,13 +345,65 @@ __device__ __forceinline__ Lane search_lane(const Index& ix, const Consts k,
   return r;
 }
 
-// The sampled suffix array as the walk reads it.
-struct Samples {
+// The sampled suffix array as the walk reads it; SamplesT<true> its tp
+// form, the table cut into blocks of `per` samples as IndexTp cuts the
+// bucket table.
+template <bool kTp>
+struct SamplesT;
+
+template <>
+struct SamplesT<false> {
   const int* sa;  // (nsamples,) int32: SA[j << shift]
   int nsamples;
   int shift;      // log2 of the sample rate
   int length;     // of the genome
 };
+
+template <>
+struct SamplesT<true> {
+  const int* const* blocks;  // (tp,) device pointers, each (per,) int32
+  int nsamples;              // the samples of the whole table
+  int per;
+  BlockDiv div;              // j / per
+  int shift;
+  int length;
+};
+
+using Samples = SamplesT<false>;
+
+// A sample table as every launch function receives it (search._sample_table):
+// per == 0, `table` holds the n samples; per > 0, the tp blocks' pointers.
+struct TableArgs {
+  const void* table;
+  int n;
+  int per;
+};
+
+template <bool kTp>
+inline SamplesT<kTp> samples_form(const TableArgs& a, int shift, int length) {
+  if constexpr (kTp) {
+    return SamplesT<true>{static_cast<const int* const*>(a.table), a.n, a.per,
+                          block_div(a.per), shift, length};
+  } else {
+    return Samples{static_cast<const int*>(a.table), a.n, shift, length};
+  }
+}
+
+// Sample j of a table, 0 <= j < n.
+__device__ __forceinline__ int sample_at(const int* table, int j) {
+  return __ldg(table + j);
+}
+__device__ __forceinline__ int sample_at(const int* const* blocks, int per,
+                                         BlockDiv div, int j) {
+  const int blk = block_index(div, j);
+  return __ldg(block_of<int>(blocks, blk) + (j - blk * per));
+}
+__device__ __forceinline__ int sample_at(const Samples& s, int j) {
+  return sample_at(s.sa, j);
+}
+__device__ __forceinline__ int sample_at(const SamplesT<true>& s, int j) {
+  return sample_at(s.blocks, s.per, s.div, j);
+}
 
 // Where a walk ended: the position, and whether it stopped at its limit
 // short of a sampled row.
@@ -363,8 +416,10 @@ struct Walk {
 // sa[row >> shift] + steps, wrapped by length + 1 (search.unc_sa).  A walk
 // from a real row (0..length) reaches row 0 within length + 1 steps, so
 // only a row past the suffix array ends `unsampled` at that limit.
-__device__ __forceinline__ Walk sa_walk(const Index& ix, const Consts k,
-                                        const Samples& s, int i, int limit) {
+template <bool kTp>
+__device__ __forceinline__ Walk sa_walk(const IndexT<kTp>& ix, const Consts k,
+                                        const SamplesT<kTp>& s, int i,
+                                        int limit) {
   const int mask = (1 << s.shift) - 1;
   int steps = 0;
   while ((i & mask) != 0 && steps < limit) {
@@ -373,18 +428,52 @@ __device__ __forceinline__ Walk sa_walk(const Index& ix, const Consts k,
   }
   int j = i >> s.shift;
   if (j < 0) j += s.nsamples;
-  const int v = (j < 0 || j >= s.nsamples) ? INT_MIN : __ldg(s.sa + j);
+  const int v = (j < 0 || j >= s.nsamples) ? INT_MIN : sample_at(s, j);
   const int x = wadd(v, steps);
   return Walk{x > s.length ? wsub(x, s.length + 1) : x, (i & mask) != 0};
 }
 
-// The inverse suffix array's samples as the window chain reads them.
-struct Isa {
+// The inverse suffix array's samples as the window chain reads them;
+// IsaT<true> the tp form, as SamplesT<true>.
+template <bool kTp>
+struct IsaT;
+
+template <>
+struct IsaT<false> {
   const int* samples;  // (nsamples,) int32: ISA[j << shift]
   int nsamples;
   int shift;   // log2 of the sample rate
   int length;  // of the genome
 };
+
+template <>
+struct IsaT<true> {
+  const int* const* blocks;  // (tp,) device pointers, each (per,) int32
+  int nsamples;
+  int per;
+  BlockDiv div;
+  int shift;
+  int length;
+};
+
+using Isa = IsaT<false>;
+
+template <bool kTp>
+inline IsaT<kTp> isa_form(const TableArgs& a, int shift, int length) {
+  if constexpr (kTp) {
+    return IsaT<true>{static_cast<const int* const*>(a.table), a.n, a.per,
+                      block_div(a.per), shift, length};
+  } else {
+    return Isa{static_cast<const int*>(a.table), a.n, shift, length};
+  }
+}
+
+__device__ __forceinline__ int sample_at(const Isa& s, int j) {
+  return sample_at(s.samples, j);
+}
+__device__ __forceinline__ int sample_at(const IsaT<true>& s, int j) {
+  return sample_at(s.blocks, s.per, s.div, j);
+}
 
 // SA^-1 of the positions of one window [plo, plo + width), top down
 // (search.isa_window_plain for one lane): anchor at the ISA sample at or
@@ -393,9 +482,9 @@ struct Isa {
 // window's floor, max(plo, 0).  emit(j, row) is called for every position
 // plo + j of the window in [0, length] with j < W, highest j first.  At
 // most rate - 1 + W positions are chained, which covers any width <= W.
-template <typename Emit>
-__device__ __forceinline__ void isa_chain(const Index& ix, const Consts k,
-                                          const Isa& s, int plo, int width,
+template <bool kTp, typename Emit>
+__device__ __forceinline__ void isa_chain(const IndexT<kTp>& ix, const Consts k,
+                                          const IsaT<kTp>& s, int plo, int width,
                                           int W, Emit emit) {
   if (width <= 0) return;
   const int n = s.length;
@@ -405,7 +494,7 @@ __device__ __forceinline__ void isa_chain(const Index& ix, const Consts k,
   const int floor = max(plo, 0);
   const int span = min(anchor - floor + 1, rate - 1 + W);
   if (span <= 0) return;
-  int row = __ldg(s.samples + min(max(anchor >> s.shift, 0), s.nsamples - 1));
+  int row = sample_at(s, min(max(anchor >> s.shift, 0), s.nsamples - 1));
   if ((n & (rate - 1)) != 0 && anchor == n) row = 0;
   for (int t = 0; t < span; ++t) {
     const int pcur = anchor - t;

@@ -24,9 +24,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kTp>
 __global__ void __launch_bounds__(kThreads)
 isa_window_kernel(const int* __restrict__ plo, const int* __restrict__ width,
-                  int B, int W, fm::Index ix, fm::Isa isa,
+                  int B, int W, fm::IndexT<kTp> ix, fm::IsaT<kTp> isa,
                   int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -37,21 +38,34 @@ isa_window_kernel(const int* __restrict__ plo, const int* __restrict__ width,
                 [&](int j, int row) { o[j] = row; });
 }
 
+template <bool kTp>
+int launch(const int* plo, const int* width, int B, int W,
+           const fm::IndexArgs& ia, const fm::TableArgs& isa, int shift,
+           int length, int* out, cudaStream_t s) {
+  const int blocks = (B + kThreads - 1) / kThreads;
+  isa_window_kernel<kTp><<<blocks, kThreads, 0, s>>>(
+      plo, width, B, W, fm::index_form<kTp>(ia),
+      fm::isa_form<kTp>(isa, shift, length), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// plo and width (B,) int32; isa_samples (nisa,) int32; out (B, W) int32.
-// All on the device, contiguous.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// plo and width (B,) int32; the index as fm::IndexArgs and the ISA samples
+// as fm::TableArgs (per > 0: a tp view); out (B, W) int32.  All on the
+// device, contiguous.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int isa_window_launch(const int* plo, const int* width, int B,
-                                 int W, const int* buckets, int nrows,
-                                 const int* C, const int* endloc,
-                                 const int* isa_samples, int nisa, int shift,
-                                 int length, int* out, void* stream) {
+                                 int W, const void* buckets, int nrows,
+                                 int per, const int* C, const int* endloc,
+                                 const void* isa_samples, int nisa,
+                                 int isa_per, int shift, int length, int* out,
+                                 void* stream) {
   if (B <= 0) return 0;
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const fm::Isa isa{isa_samples, nisa, shift, length};
-  const int blocks = (B + kThreads - 1) / kThreads;
-  isa_window_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      plo, width, B, W, ix, isa, out);
-  return static_cast<int>(cudaGetLastError());
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs isa{isa_samples, nisa, isa_per};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return per > 0 ? launch<true>(plo, width, B, W, ia, isa, shift, length, out, s)
+                 : launch<false>(plo, width, B, W, ia, isa, shift, length, out,
+                                 s);
 }

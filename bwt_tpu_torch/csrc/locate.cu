@@ -30,11 +30,11 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTile>
+template <bool kTile, bool kTp>
 __global__ void __launch_bounds__(kThreads)
 locate_kernel(const int* __restrict__ patterns, const int* __restrict__ lengths,
-              int B, int L, fm::SeedRows seed, fm::Index ix, fm::Samples sa,
-              int* __restrict__ out) {
+              int B, int L, fm::SeedRows seed, fm::IndexT<kTp> ix,
+              fm::SamplesT<kTp> sa, int* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   fm::PatternView<int, kTile> pat(patterns, B, b, L);
   if (b >= B) return;
@@ -52,32 +52,46 @@ locate_kernel(const int* __restrict__ patterns, const int* __restrict__ lengths,
   }
 }
 
-}  // namespace
-
-// patterns (B, L) and lengths (B,) int32, contiguous, on the device;
-// seed_rows (seed_nrows, 6) or null for an unseeded search; out (B + 2,)
-// int32 with its last two entries zero.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int locate_launch(const int* patterns, const int* lengths, int B,
-                             int L, const int* seed_rows, int seed_nrows,
-                             int seed_k, const int* buckets, int nrows,
-                             const int* C, const int* endloc,
-                             const int* sa_samples, int nsamples, int shift,
-                             int length, int* out, void* stream) {
-  if (B <= 0) return 0;
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const fm::Samples sa{sa_samples, nsamples, shift, length};
+template <bool kTp>
+int launch(const int* patterns, const int* lengths, int B, int L,
+           const fm::SeedRows& seed, const fm::IndexArgs& ia,
+           const fm::TableArgs& sa_args, int shift, int length, int* out,
+           cudaStream_t s) {
+  const fm::IndexT<kTp> ix = fm::index_form<kTp>(ia);
+  const fm::SamplesT<kTp> sa = fm::samples_form<kTp>(sa_args, shift, length);
   const int blocks = (B + kThreads - 1) / kThreads;
-  const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = fm::tile_bytes(locate_kernel<true>, kThreads,
+  const size_t smem = fm::tile_bytes(locate_kernel<true, kTp>, kThreads,
                                      L * sizeof(int));
   if (smem) {
-    locate_kernel<true><<<blocks, kThreads, smem, s>>>(
+    locate_kernel<true, kTp><<<blocks, kThreads, smem, s>>>(
         patterns, lengths, B, L, seed, ix, sa, out);
   } else {
-    locate_kernel<false><<<blocks, kThreads, 0, s>>>(
+    locate_kernel<false, kTp><<<blocks, kThreads, 0, s>>>(
         patterns, lengths, B, L, seed, ix, sa, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// patterns (B, L) and lengths (B,) int32, contiguous, on the device;
+// seed_rows (seed_nrows, 6) or null for an unseeded search; the index as
+// fm::IndexArgs and the SA samples as fm::TableArgs (per > 0: a tp view);
+// out (B + 2,) int32 with its last two entries zero.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
+extern "C" int locate_launch(const int* patterns, const int* lengths, int B,
+                             int L, const int* seed_rows, int seed_nrows,
+                             int seed_k, const void* buckets, int nrows,
+                             int per, const int* C, const int* endloc,
+                             const void* sa_samples, int nsamples, int sa_per,
+                             int shift, int length, int* out, void* stream) {
+  if (B <= 0) return 0;
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs sa{sa_samples, nsamples, sa_per};
+  const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return per > 0
+      ? launch<true>(patterns, lengths, B, L, seed, ia, sa, shift, length, out, s)
+      : launch<false>(patterns, lengths, B, L, seed, ia, sa, shift, length, out,
+                      s);
 }

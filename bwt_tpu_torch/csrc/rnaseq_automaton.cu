@@ -122,12 +122,14 @@ struct HuntGate {
   }
 };
 
+template <bool kTp>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rnaseq_automaton_kernel(const uint8_t* __restrict__ bank, int R, int Lb,
                         const int* __restrict__ lens,
                         const uint8_t* __restrict__ live0, int ac, int cc,
                         int resolve, int cap, fm::SeedRows seed,
-                        fm::Index ix, fm::Samples sa, fm::Isa isa,
+                        fm::IndexT<kTp> ix, fm::SamplesT<kTp> sa,
+                        fm::IsaT<kTp> isa,
                         int* __restrict__ out, int* __restrict__ n_over,
                         unsigned long long* __restrict__ first_over) {
   const int q = Tile::rank();
@@ -238,15 +240,19 @@ rnaseq_automaton_kernel(const uint8_t* __restrict__ bank, int R, int Lb,
 }
 
 // Launch the kernel at kTile threads a read.
+template <bool kTp>
 int launch(const uint8_t* bank, int R, int Lb, const int* lens,
            const uint8_t* live0, int ac, int cc, int resolve, int cap,
-           fm::SeedRows seed, fm::Index ix, fm::Samples sa, fm::Isa isa,
-           int* out, int* flag, cudaStream_t stream) {
+           fm::SeedRows seed, const fm::IndexArgs& ia,
+           const fm::TableArgs& sa, const fm::TableArgs& isa, int shift,
+           int length, int* out, int* flag, cudaStream_t stream) {
   const long long threads = static_cast<long long>(R) * kTile;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  rnaseq_automaton_kernel<<<blocks, kThreads, 0, stream>>>(
-      bank, R, Lb, lens, live0, ac, cc, resolve, cap, seed, ix, sa, isa, out,
-      flag, reinterpret_cast<unsigned long long*>(flag + 2));
+  rnaseq_automaton_kernel<kTp><<<blocks, kThreads, 0, stream>>>(
+      bank, R, Lb, lens, live0, ac, cc, resolve, cap, seed,
+      fm::index_form<kTp>(ia), fm::samples_form<kTp>(sa, shift, length),
+      fm::isa_form<kTp>(isa, shift, length), out, flag,
+      reinterpret_cast<unsigned long long*>(flag + 2));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -256,27 +262,32 @@ int launch(const uint8_t* bank, int R, int Lb, const int* lens,
 extern "C" int rnaseq_automaton_flag_offset(int R) { return (3 * R + 1) & ~1; }
 
 // bank (R, Lb) uint8 codes, one read a row; lens (R,) int32; live0 (R,)
-// bool; seed_rows (seed_nrows, 6) or null; isa_samples (nisa,) int32; out
+// bool; seed_rows (seed_nrows, 6) or null; the index as fm::IndexArgs and
+// the SA and ISA samples as fm::TableArgs (per > 0: a tp view); out
 // (F + 4,) int32, F = rnaseq_automaton_flag_offset(R), with its last four
 // entries zero.  All on the device, contiguous.  Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 extern "C" int rnaseq_automaton_launch(
     const uint8_t* bank, int R, int Lb, const int* lens, const uint8_t* live0,
     int ac, int cc, int resolve, int cap, const int* seed_rows,
-    int seed_nrows, int seed_k, const int* buckets, int nrows, const int* C,
-    const int* endloc, const int* sa_samples, int nsamples, int shift,
-    int length, const int* isa_samples, int nisa, int* out,
-    void* stream) {
+    int seed_nrows, int seed_k, const void* buckets, int nrows, int per,
+    const int* C, const int* endloc, const void* sa_samples, int nsamples,
+    int sa_per, int shift, int length, const void* isa_samples, int nisa,
+    int isa_per, int* out, void* stream) {
   if (R <= 0) return 0;
   if (Lb <= 0 || isa_samples == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const fm::Samples sa{sa_samples, nsamples, shift, length};
-  const fm::Isa isa{isa_samples, nisa, shift, length};
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs sa{sa_samples, nsamples, sa_per};
+  const fm::TableArgs isa{isa_samples, nisa, isa_per};
   const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
   int* flag = out + rnaseq_automaton_flag_offset(R);
   const auto st = static_cast<cudaStream_t>(stream);
-  return launch(bank, R, Lb, lens, live0, ac, cc, resolve, cap, seed, ix, sa,
-                isa, out, flag, st);
+  return per > 0 ? launch<true>(bank, R, Lb, lens, live0, ac, cc, resolve,
+                                cap, seed, ia, sa, isa, shift, length, out,
+                                flag, st)
+                 : launch<false>(bank, R, Lb, lens, live0, ac, cc, resolve,
+                                 cap, seed, ia, sa, isa, shift, length, out,
+                                 flag, st);
 }

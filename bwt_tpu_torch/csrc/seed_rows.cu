@@ -82,8 +82,8 @@ struct Writer {
 // The D levels below state s, its descendants at rows m + mstep * (c1 + 4
 // c2 + ...).  Every lane of the warp calls it in step (the writes are the
 // warp's); a dead state loads nothing.
-template <int D>
-__device__ __forceinline__ void expand(const fm::Index& ix,
+template <int D, bool kTp>
+__device__ __forceinline__ void expand(const fm::IndexT<kTp>& ix,
                                        const fm::Consts& kc, const State& s,
                                        int m, int mstep, const Writer& w) {
   if constexpr (D == 0) {
@@ -117,9 +117,10 @@ __device__ __forceinline__ void expand(const fm::Index& ix,
   }
 }
 
-template <int D>
+template <int D, bool kTp>
 __global__ void __launch_bounds__(kThreads)
-seed_rows_kernel(int prefix, int nprefix, fm::Index ix, int* __restrict__ out) {
+seed_rows_kernel(int prefix, int nprefix, fm::IndexT<kTp> ix,
+                 int* __restrict__ out) {
   __shared__ int4 stage[kThreads / 32][kWarpWords];
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
@@ -143,36 +144,43 @@ seed_rows_kernel(int prefix, int nprefix, fm::Index ix, int* __restrict__ out) {
   expand<D>(ix, kc, s, 0, 1, w);
 }
 
-}  // namespace
-
-// out (4^k, 6) int32 on the device, 1 <= k <= 15.  One launch on `stream`;
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
-// k outside that range.
-extern "C" int seed_rows_launch(int k, const int* buckets, int nrows,
-                                const int* C, const int* endloc, int* out,
-                                void* stream) {
-  if (k < 1 || k > 15) return static_cast<int>(cudaErrorInvalidValue);
+template <bool kTp>
+int launch(int k, const fm::IndexArgs& ia, int* out, cudaStream_t st) {
   const int prefix = k - kFused > 1 ? k - kFused : 1;
   const int nprefix = 1 << (2 * prefix);
-  const fm::Index ix{buckets, nrows, C, endloc};
+  const fm::IndexT<kTp> ix = fm::index_form<kTp>(ia);
   const int blocks = (nprefix + kThreads - 1) / kThreads;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k - prefix) {
     case 0:
-      seed_rows_kernel<0>
+      seed_rows_kernel<0, kTp>
           <<<blocks, kThreads, 0, st>>>(prefix, nprefix, ix, out);
       break;
     case 1:
-      seed_rows_kernel<1>
+      seed_rows_kernel<1, kTp>
           <<<blocks, kThreads, 0, st>>>(prefix, nprefix, ix, out);
       break;
     case 2:
-      seed_rows_kernel<2>
+      seed_rows_kernel<2, kTp>
           <<<blocks, kThreads, 0, st>>>(prefix, nprefix, ix, out);
       break;
     default:
-      seed_rows_kernel<kFused><<<blocks, kThreads, 0, st>>>(prefix, nprefix,
-                                                            ix, out);
+      seed_rows_kernel<kFused, kTp><<<blocks, kThreads, 0, st>>>(
+          prefix, nprefix, ix, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out (4^k, 6) int32 on the device, 1 <= k <= 15; the index as
+// fm::IndexArgs (per > 0: a tp view).  One launch on `stream`; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a k
+// outside that range.
+extern "C" int seed_rows_launch(int k, const void* buckets, int nrows,
+                                int per, const int* C, const int* endloc,
+                                int* out, void* stream) {
+  if (k < 1 || k > 15) return static_cast<int>(cudaErrorInvalidValue);
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return per > 0 ? launch<true>(k, ia, out, st) : launch<false>(k, ia, out, st);
 }

@@ -66,11 +66,12 @@ using SplitOf = typename std::conditional<kTile == 1, svc::NoSplit,
 
 // Lane b is threads [b kTile, (b + 1) kTile) of the grid; the first of them
 // stores its columns.
-template <typename T, int kTile>
+template <typename T, int kTile, bool kTp>
 __global__ void __launch_bounds__(kThreads)
 service_kernel(const T* __restrict__ bank, int R, int Lb, Fields f, int B,
-               svc::Flags fl, fm::SeedRows seed, fm::Index ix,
-               fm::Samples sa, fm::Isa isa, int* __restrict__ out) {
+               svc::Flags fl, fm::SeedRows seed, fm::IndexT<kTp> ix,
+               fm::SamplesT<kTp> sa, fm::IsaT<kTp> isa,
+               int* __restrict__ out) {
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int b = static_cast<int>(t / kTile);
@@ -107,63 +108,80 @@ int tile_of(int B) {
   return B <= kTileLanes ? kSmallTile : 1;
 }
 
-template <typename T, int kTile>
+template <typename T, int kTile, bool kTp>
 int launch(const T* bank, int R, int Lb, Fields f, int B, svc::Flags fl,
-           fm::SeedRows seed, fm::Index ix, fm::Samples sa, fm::Isa isa,
-           int* out, cudaStream_t s) {
+           fm::SeedRows seed, fm::IndexT<kTp> ix, fm::SamplesT<kTp> sa,
+           fm::IsaT<kTp> isa, int* out, cudaStream_t s) {
   const long long threads = static_cast<long long>(B) * kTile;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  service_kernel<T, kTile><<<blocks, kThreads, 0, s>>>(
+  service_kernel<T, kTile, kTp><<<blocks, kThreads, 0, s>>>(
       bank, R, Lb, f, B, fl, seed, ix, sa, isa, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTp>
 int launch_round(const T* bank, int R, int Lb, Fields f, int B,
-                 svc::Flags fl, fm::SeedRows seed, fm::Index ix,
-                 fm::Samples sa, fm::Isa isa, int* out, cudaStream_t s) {
+                 svc::Flags fl, fm::SeedRows seed, fm::IndexT<kTp> ix,
+                 fm::SamplesT<kTp> sa, fm::IsaT<kTp> isa, int* out,
+                 cudaStream_t s) {
   switch (tile_of(B)) {
     case 1:
-      return launch<T, 1>(bank, R, Lb, f, B, fl, seed, ix, sa, isa, out, s);
+      return launch<T, 1, kTp>(bank, R, Lb, f, B, fl, seed, ix, sa, isa, out,
+                               s);
     case kSmallTile:
-      return launch<T, kSmallTile>(bank, R, Lb, f, B, fl, seed, ix, sa, isa,
-                                   out, s);
+      return launch<T, kSmallTile, kTp>(bank, R, Lb, f, B, fl, seed, ix, sa,
+                                        isa, out, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <bool kTp>
+int launch_elem(const void* bank, int elem, int R, int Lb, Fields f, int B,
+                svc::Flags fl, fm::SeedRows seed, const fm::IndexArgs& ia,
+                const fm::TableArgs& sa, const fm::TableArgs& isa, int shift,
+                int length, int* out, cudaStream_t s) {
+  const fm::IndexT<kTp> ix = fm::index_form<kTp>(ia);
+  const fm::SamplesT<kTp> sam = fm::samples_form<kTp>(sa, shift, length);
+  const fm::IsaT<kTp> is = fm::isa_form<kTp>(isa, shift, length);
+  if (elem == 4) {
+    return launch_round(static_cast<const int*>(bank), R, Lb, f, B, fl, seed,
+                        ix, sam, is, out, s);
+  }
+  if (elem == 1) {
+    return launch_round(static_cast<const uint8_t*>(bank), R, Lb, f, B, fl,
+                        seed, ix, sam, is, out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // bank (R, Lb) of `elem`-byte codes (4: int32, 1: uint8); the seven lane
-// fields (B,) int32; seed_rows (seed_nrows, 6) or null; isa_samples may
-// be null when ext is 0; out (13 B + 2,) int32 with its last two entries
-// zero.  All on the device, contiguous.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an
-// element size it has no kernel for.
+// fields (B,) int32; seed_rows (seed_nrows, 6) or null; the index as
+// fm::IndexArgs and the SA and ISA samples as fm::TableArgs (per > 0: a tp
+// view); isa_samples may be null when ext is 0; out (13 B + 2,) int32 with
+// its last two entries zero.  All on the device, contiguous.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for an element size it has no kernel for.
 extern "C" int service_launch(
     const void* bank, int elem, int R, int Lb, const int* opc, const int* row,
     const int* off, const int* ln, const int* sp, const int* ep,
     const int* idx, int B, int resolve, int ext, int walk,
-    const int* seed_rows, int seed_nrows, int seed_k, const int* buckets,
-    int nrows, const int* C, const int* endloc, const int* sa_samples,
-    int nsamples, int shift, int length, const int* isa_samples, int nisa,
-    int* out, void* stream) {
+    const int* seed_rows, int seed_nrows, int seed_k, const void* buckets,
+    int nrows, int per, const int* C, const int* endloc,
+    const void* sa_samples, int nsamples, int sa_per, int shift, int length,
+    const void* isa_samples, int nisa, int isa_per, int* out, void* stream) {
   if (B <= 0) return 0;
   const Fields f{opc, row, off, ln, sp, ep, idx};
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const fm::Samples sa{sa_samples, nsamples, shift, length};
-  const fm::Isa isa{isa_samples, nisa, shift, length};
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs sa{sa_samples, nsamples, sa_per};
+  const fm::TableArgs isa{isa_samples, nisa, isa_per};
   const fm::SeedRows seed{seed_rows, seed_nrows, seed_k};
   const svc::Flags fl{resolve != 0, ext != 0, walk != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) {
-    return launch_round(static_cast<const int*>(bank), R, Lb, f, B, fl, seed,
-                        ix, sa, isa, out, s);
-  }
-  if (elem == 1) {
-    return launch_round(static_cast<const uint8_t*>(bank), R, Lb, f, B, fl,
-                        seed, ix, sa, isa, out, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return per > 0 ? launch_elem<true>(bank, elem, R, Lb, f, B, fl, seed, ia,
+                                     sa, isa, shift, length, out, s)
+                 : launch_elem<false>(bank, elem, R, Lb, f, B, fl, seed, ia,
+                                      sa, isa, shift, length, out, s);
 }

@@ -158,14 +158,16 @@ struct NoGate {
   }
 };
 
-template <typename T, typename Split = NoSplit, typename Gate = NoGate>
+template <typename T, typename Split = NoSplit, typename Gate = NoGate,
+          bool kTp = false>
 __device__ __forceinline__ Cols lane(const T* __restrict__ bank, int R, int Lb,
                                      int opc, int brow, int off, int ln,
                                      int sp, int ep, int idx, Flags fl,
                                      const fm::SeedRows& seed,
-                                     const fm::Index& ix, const fm::Consts k,
-                                     const fm::Samples& sa,
-                                     const fm::Isa& isa,
+                                     const fm::IndexT<kTp>& ix,
+                                     const fm::Consts k,
+                                     const fm::SamplesT<kTp>& sa,
+                                     const fm::IsaT<kTp>& isa,
                                      const Split& split = Split(),
                                      const Gate& gate = Gate()) {
   const bool is_mms = opc == kMms || opc == kMext;

@@ -34,9 +34,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kTp>
 __global__ void __launch_bounds__(kThreads)
-unc_sa_kernel(const int* __restrict__ idx, int B, fm::Index ix,
-              fm::Samples sa, int limit, int bound_is_limit,
+unc_sa_kernel(const int* __restrict__ idx, int B, fm::IndexT<kTp> ix,
+              fm::SamplesT<kTp> sa, int limit, int bound_is_limit,
               int* __restrict__ out, int* __restrict__ flag) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -46,21 +47,35 @@ unc_sa_kernel(const int* __restrict__ idx, int B, fm::Index ix,
   if (bound_is_limit && w.unsampled) fm::raise_flag(flag, B, b);
 }
 
+template <bool kTp>
+int launch(const int* idx, int B, const fm::IndexArgs& ia,
+           const fm::TableArgs& sa, int shift, int length, int limit,
+           int bound_is_limit, int* out, int* flag, cudaStream_t s) {
+  const int blocks = (B + kThreads - 1) / kThreads;
+  unc_sa_kernel<kTp><<<blocks, kThreads, 0, s>>>(
+      idx, B, fm::index_form<kTp>(ia), fm::samples_form<kTp>(sa, shift, length),
+      limit, bound_is_limit, out, flag);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// idx (B,) int32 rows on the device; sa_samples (nsamples,); out (B,)
-// int32; flag (2,) int32, zeroed by the caller.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
-extern "C" int unc_sa_launch(const int* idx, int B, const int* buckets,
-                             int nrows, const int* C, const int* endloc,
-                             const int* sa_samples, int nsamples, int shift,
-                             int length, int limit, int bound_is_limit,
-                             int* out, int* flag, void* stream) {
+// idx (B,) int32 rows on the device; the index as fm::IndexArgs and the
+// SA samples as fm::TableArgs (per > 0: a tp view); out (B,) int32; flag
+// (2,) int32, zeroed by the caller.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int unc_sa_launch(const int* idx, int B, const void* buckets,
+                             int nrows, int per, const int* C,
+                             const int* endloc, const void* sa_samples,
+                             int nsamples, int sa_per, int shift, int length,
+                             int limit, int bound_is_limit, int* out,
+                             int* flag, void* stream) {
   if (B <= 0) return 0;
-  const fm::Index ix{buckets, nrows, C, endloc};
-  const int blocks = (B + kThreads - 1) / kThreads;
-  unc_sa_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, B, ix, fm::Samples{sa_samples, nsamples, shift, length}, limit,
-      bound_is_limit, out, flag);
-  return static_cast<int>(cudaGetLastError());
+  const fm::IndexArgs ia{buckets, nrows, per, C, endloc};
+  const fm::TableArgs sa{sa_samples, nsamples, sa_per};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return per > 0 ? launch<true>(idx, B, ia, sa, shift, length, limit,
+                                bound_is_limit, out, flag, s)
+                 : launch<false>(idx, B, ia, sa, shift, length, limit,
+                                 bound_is_limit, out, flag, s);
 }

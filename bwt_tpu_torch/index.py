@@ -14,6 +14,14 @@ seqindex.c:161-212):
   * ``endloc``     — SA row of the sentinel (where ``SA[i] == 0``).
   * ``isa_samples``— ISA at every ``sa_rate``-th text position, or None
     (reference-format loads store no inverse).
+
+A tp view (``parallel.shard_index`` then ``parallel.tp_view``) holds one
+block of each sequence table instead: ``bwt_words``, ``buckets``,
+``sa_samples`` and ``isa_samples`` are this rank's contiguous block of
+``bwt_tpu``'s tp-padded tables, ``C`` and ``endloc`` whole, and
+``shard`` says where the blocks sit (:class:`Shard`).  The global row
+counts come from ``length`` (``bucket_rows``, ``sample_rows``), never from
+a block's ``shape[0]``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,43 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shard:
+    """Where a tp view's blocks sit.  Each sharded table of ``n`` rows is
+    padded with zero rows to a multiple of ``size`` (``bwt_tpu``'s
+    ``shard_index``); block ``j`` holds rows ``[j per, (j + 1) per)`` with
+    ``per = padded // size``, and this rank holds block ``coord``.
+
+    ``mesh`` (a ``parallel.Mesh``) is the group the plain reads all-reduce
+    over along 'tp' (None for a view made in one process, whose plain
+    reads need ``size`` 1).  On a card, ``tables`` maps each table the
+    kernels read (``buckets``, ``sa_samples``, ``isa_samples``) to a
+    (size,) int64 tensor of its blocks' device pointers, uploaded once for
+    the view, and ``peers`` holds the blocks this rank allocated and the
+    mappings of its peers' blocks it opened (``parallel.peer``)."""
+    coord: int
+    size: int
+    word_per: int
+    bucket_per: int
+    sample_per: int
+    mesh: object = None
+    tables: dict | None = None
+    peers: object = None
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the tp group (``parallel.mesh._all_reduce``,
+        the one place that knows the backend)."""
+        if self.size == 1:
+            return t
+        if self.mesh is None:
+            raise RuntimeError(
+                "a tp view made in one process has no group: its plain "
+                "reads need a view made by parallel.shard_index")
+        from bwt_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh._all_reduce(self.mesh, "tp", t)
+
+
 @dataclasses.dataclass(frozen=True)
 class FMIndex:
     bwt_words: torch.Tensor  # (nwords+1,) int32 bit patterns
@@ -50,19 +95,51 @@ class FMIndex:
     length: int
     sa_rate: int = SA_SAMPLE_RATE  # power of two
     isa_samples: torch.Tensor | None = None  # (1 + length//sa_rate,)
+    # a tp view: the mesh axis its reads reduce over ("tp"), as
+    # bwt_tpu.FMIndex.tp_axis; set by parallel.tp_view on a shard
+    tp_axis: str | None = None
+    shard: Shard | None = None  # where the blocks sit (parallel.shard_index)
 
     @property
     def device(self) -> torch.device:
         return self.buckets.device
 
+    @property
+    def tp(self) -> Shard | None:
+        """The shard record of a tp view, None for a whole index.  A shard
+        that ``tp_view`` has not marked raises: its tensors are blocks, and
+        only the tp reads know it."""
+        if self.shard is None:
+            return None
+        if self.tp_axis is None:
+            raise ValueError("this index is a shard_index result: query it "
+                             "through parallel.tp_view")
+        return self.shard
+
+    def require_whole(self, what: str) -> None:
+        """Raise for a tp view: ``what`` needs every block of the index."""
+        if self.shard is not None:
+            raise ValueError(
+                f"{what} needs the whole index; this one is a tp view holding "
+                f"block {self.shard.coord} of {self.shard.size} of each "
+                f"sequence table")
+
     def rank(self, c, idx):
         """rank(c, idx) with sentinel skipping (seqindex.c:221-225)."""
-        return rank_ops.rank(self.buckets, self.endloc, c, idx)
+        return rank_ops.rank(self.buckets, self.endloc, c, idx, self.tp,
+                             self.bucket_rows)
 
     def lf(self, idx):
         """LF-mapping (seqindex.c:214-219)."""
         idx = torch.as_tensor(idx, dtype=torch.int32, device=self.device)
-        return rank_ops.lf(self.buckets, self.C, self.endloc, idx)
+        return rank_ops.lf(self.buckets, self.C, self.endloc, idx, self.tp,
+                           self.bucket_rows)
+
+    def sample_at(self, table: torch.Tensor, j: torch.Tensor):
+        """``table[j]`` of ``sa_samples`` or ``isa_samples`` like
+        ``jnp.take`` (:func:`rank_ops.take_fill`), through the tp reads on
+        a view."""
+        return rank_ops.take_fill(table, j, self.tp, self.sample_rows)
 
     @property
     def nwords(self) -> int:
@@ -83,6 +160,7 @@ class FMIndex:
 
     def to(self, device) -> "FMIndex":
         """The same index with its tensors on ``device``."""
+        self.require_whole("FMIndex.to")
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
@@ -91,6 +169,7 @@ class FMIndex:
     def to_numpy(self) -> dict:
         """The index arrays as numpy, in ``bwt_tpu``'s dtypes (the inverse
         of :func:`from_numpy`)."""
+        self.require_whole("FMIndex.to_numpy")
         d = dict(
             bwt_words=self.bwt_words.cpu().numpy().view(np.uint32),
             buckets=self.buckets.cpu().numpy(),
@@ -282,5 +361,6 @@ def index_from_parts(*, bwt_codes, sa_samples, endloc, length: int,
 
 def bwt_codes(fmi: FMIndex) -> np.ndarray:
     """The compact BWT as uint8 codes on the host."""
+    fmi.require_whole("bwt_codes")
     words = fmi.bwt_words[:-1].cpu().numpy().view(np.uint32)
     return codec.unpack_words(words, fmi.length)

@@ -23,6 +23,7 @@ from bwt_tpu_torch.index import FMIndex, from_numpy, index_from_parts
 def write_ref_index(fmi: FMIndex, path) -> None:
     """Serialize in the reference's fileio.c format (SA samples at rate
     32; denser indexes are downsampled)."""
+    fmi.require_whole("write_ref_index")
     if fmi.sa_rate > 32 or 32 % fmi.sa_rate:
         raise ValueError(
             f"reference format needs sa_rate dividing 32, got {fmi.sa_rate}")
@@ -75,6 +76,7 @@ def read_ref_index(path, device=None) -> FMIndex:
 
 
 def write_npz_index(fmi: FMIndex, path) -> None:
+    fmi.require_whole("write_npz_index")
     d = fmi.to_numpy()
     np.savez_compressed(
         path,

@@ -943,15 +943,17 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     longer read raises ValueError with "device".  The results are the same
     either way, and equal the JAX package's for either of its engines.
 
-    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1) runs the
-    device engine on every rank, each on its contiguous share of the reads
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` runs the device engine
+    on every rank, each on its contiguous share of the reads along 'dp'
     (``parallel.mesh.share``; a rank whose share is empty, when there are
     fewer reads than ranks, aligns none) and on its own device, then
     gathers the results along 'dp' (:func:`_merge_results`), so every rank
     returns the whole list in read order, equal to the single-device
-    run's.  It needs the device engine (ValueError
-    otherwise, and for a read past 32,767 bases); a mesh with tp > 1
-    raises NotImplementedError."""
+    run's.  With tp > 1 (``bwt_tpu``'s phase split) the ranks of a tp group
+    run the same share: phase A, the automaton and its escapes, over a tp
+    view (``parallel.mesh.serving_index``: ``fmi`` itself if it is one),
+    phase B against the genome text as on one device.  It needs the device
+    engine (ValueError otherwise, and for a read past 32,767 bases)."""
     from bwt_tpu_torch.config import DEFAULT
 
     if engine not in ("auto", "device", "host"):
@@ -959,8 +961,7 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     if mesh is not None:
         from bwt_tpu_torch.parallel import mesh as pmesh
 
-        pmesh.require_dp(mesh, "align_reads")
-        fmi = pmesh.replicate_index(fmi, mesh)
+        given, fmi = fmi, pmesh.serving_index(fmi, mesh)
     if config is not None:
         cfg = config
     elif service is not None:
@@ -975,7 +976,9 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
         anchor_len = cfg.anchor_len
     genome = _as_genome_codes(genome)
     glen = len(genome)
-    if service is not None and service.config is not cfg:
+    if service is not None and (service.config is not cfg
+                                or service.fmi.shard is not fmi.shard):
+        # another config, or a service over the whole index on a tp mesh
         service = QueryService(
             fmi, service.genome_dev if service.genome_dev is not None
             else genome, cfg)
@@ -1008,6 +1011,7 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
         lo, hi = pmesh.share(len(codes_list), mesh)
         part = (_align_reads_device(fmi, genome, glen, codes_list[lo:hi],
                                     anchor_len, cfg, svc) if hi > lo else [])
+        pmesh.done_serving(fmi, given)
         with pmesh.merging():
             results = _merge_results(mesh, part)
     elif use_dev:

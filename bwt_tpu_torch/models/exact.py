@@ -78,12 +78,17 @@ def anchor_scan_mesh(mesh, fmi_r, patterns, lengths, *,
     rank's (B / dp,) shards of ``(n_anchors, last_anchor_pos)``, where
     ``bwt_tpu`` returns global arrays; ``parallel.gather_hits`` joins
     them.  ``fmi_r`` is the index on the rank's device
-    (``parallel.replicate_index``)."""
+    (``parallel.replicate_index``), or for a mesh with tp > 1 a tp view of
+    its shard (``parallel.shard_index``), whose kernel reads the blocks
+    through their table and whose plain version all-reduces over 'tp'."""
     from bwt_tpu_torch.parallel import mesh as pmesh
 
-    pmesh.require_dp(mesh, "anchor_scan_mesh")
+    served = (pmesh.serving_index(fmi_r, mesh) if mesh.shape["tp"] > 1
+              else fmi_r)
     p, ln = pmesh.shard_patterns(patterns, lengths, mesh)
-    return anchor_scan(fmi_r, p, ln, min_anchor=min_anchor, reverse=reverse)
+    out = anchor_scan(served, p, ln, min_anchor=min_anchor, reverse=reverse)
+    pmesh.done_serving(served, fmi_r)
+    return out
 
 
 def _plain_reverse(pat: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -248,20 +253,20 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
     Returns a dict of numpy arrays: ``fwd_matches, fwd_pos, rev_matches,
     rev_pos, paired``.
 
-    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1): each rank
-    scans its contiguous share of the reads (``parallel.mesh.share``,
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh`: each rank scans its
+    contiguous share of the reads along 'dp' (``parallel.mesh.share``,
     shares of ceil(B / dp), so no pad reads) on its own device, chunk by
     chunk as above, and one all-gather along 'dp' gives every rank the
-    whole result in read order, equal to the single-device run's.  A mesh
-    with tp > 1 raises NotImplementedError."""
+    whole result in read order, equal to the single-device run's.  With
+    tp > 1 the ranks of a tp group scan the same share over a tp view
+    (``parallel.mesh.serving_index``: ``fmi`` itself if it is one)."""
     from bwt_tpu_torch.config import DEFAULT
 
     cfg = config or DEFAULT
     if mesh is not None:
         from bwt_tpu_torch.parallel import mesh as pmesh
 
-        pmesh.require_dp(mesh, "search_reads")
-        fmi = pmesh.replicate_index(fmi, mesh)
+        given, fmi = fmi, pmesh.serving_index(fmi, mesh)
     if cfg.elastic_fallback:
         raise NotImplementedError(
             "config.elastic_fallback is not ported (ROADMAP Queue 1: "
@@ -279,6 +284,7 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
     scan = _scan_on_card if search._on_card(fmi) else _scan_on_cpu
     fm, fp, bm, bp = scan(fmi, pat, lens, min_anchor, cfg.search_batch)
     if mesh is not None:
+        pmesh.done_serving(fmi, given)
         with pmesh.merging():
             fm, fp, bm, bp = pmesh.gather_batch(
                 mesh, np.stack([fm, fp, bm, bp], axis=1)).T

@@ -237,13 +237,14 @@ def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
     ``capped`` (reads re-run on the host at the cap) and ``max_iters``
     (the most iterations a read ran).
 
-    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh` (tp = 1): each rank
-    runs the engine on its contiguous share of the reads
+    ``mesh``: a :class:`bwt_tpu_torch.parallel.Mesh`: each rank runs the
+    engine on its contiguous share of the reads along 'dp'
     (``parallel.mesh.share``; an empty share when there are fewer reads
     than ranks) on its own device, one K9 launch a chunk, and one
     all-gather along 'dp' gives every rank the whole array in read order,
-    equal to the single-device run's.  A mesh with tp > 1 raises
-    NotImplementedError.
+    equal to the single-device run's.  With tp > 1 the ranks of a tp group
+    run the same share over a tp view (``parallel.mesh.serving_index``:
+    ``fmi`` itself if it is one).
 
     The cyclic garbage collector is paused for the call: the engine
     allocates no cycles."""
@@ -252,8 +253,10 @@ def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
     if mesh is not None:
         from bwt_tpu_torch.parallel import mesh as pmesh
 
-        pmesh.require_dp(mesh, "rna_seq")
-        fmi = pmesh.replicate_index(fmi, mesh)
+        given, fmi = fmi, pmesh.serving_index(fmi, mesh)
+        if service is not None and service.fmi.shard is not fmi.shard:
+            # a service over the whole index: serve from the view
+            service = QueryService(fmi, config=service.config)
         lo, hi = pmesh.share(len(reads), mesh)
         reads = reads[lo:hi]
     was_enabled = gc.isenabled()
@@ -266,6 +269,7 @@ def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
             gc.enable()
     if mesh is None:
         return res
+    pmesh.done_serving(fmi, given)
     with pmesh.merging():
         return pmesh.gather_batch(mesh, res)
 

@@ -109,35 +109,49 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
             LL = ctypes.POINTER(ctypes.c_longlong)
+            PP = ctypes.POINTER(ctypes.c_void_p)
+            IP = ctypes.POINTER(ctypes.c_int)
+            IX, TB = [P, I, I, P, P], [P, I, I]
             for name, argtypes in (
                     ("dp_wavefront_launch", [P] * 4 + [I] * 7 + [P]),
                     ("dp_stitch_plan", [I, I, I, I, LL]),
                     ("dp_stitch_launch",
                      [P, I, I, P, I] + [P] * 8 + [I] * 9 + [P] * 4),
+                    # the index as (table, rows, per, C, endloc) and a
+                    # sample table as (table, rows, per): per > 0 is a tp
+                    # view (search._index_args, search._sample_table)
                     ("backward_search_launch",
-                     [P, P, I, I, I, I, I, P, P, P, I, I, P, I, P, P, P, P]),
+                     [P, P, I, I, I, I, I, P, P, P, I, I] + IX + [P, P]),
                     ("unc_sa_launch",
-                     [P, I, P, I, P, P, P, I, I, I, I, I, P, P, P]),
+                     [P, I] + IX + TB + [I, I, I, I, P, P, P]),
                     ("anchor_scan_launch",
-                     [P, I, P, I, I, I, I, P, I, P, P, P, I, I, I, P, P]),
+                     [P, I, P, I, I, I, I] + IX + TB + [I, I, P, P]),
                     ("locate_launch",
-                     [P, P, I, I, P, I, I, P, I, P, P, P, I, I, I, P, P]),
+                     [P, P, I, I, P, I, I] + IX + TB + [I, I, P, P]),
                     ("service_launch",
-                     [P, I, I, I] + [P] * 7 + [I] * 4 + [P, I, I, P, I, P, P,
-                                                        P, I, I, I, P, I, P,
-                                                        P]),
+                     [P, I, I, I] + [P] * 7 + [I] * 4 + [P, I, I] + IX + TB
+                     + [I, I] + TB + [P, P]),
                     ("isa_window_launch",
-                     [P, P, I, I, P, I, P, P, P, I, I, I, P, P]),
-                    ("seed_rows_launch", [I, P, I, P, P, P, P]),
+                     [P, P, I, I] + IX + TB + [I, I, P, P]),
+                    ("seed_rows_launch", [I] + IX + [P, P]),
                     ("rnaseq_automaton_launch",
-                     [P, I, I, P, P, I, I, I, I, P, I, I, P, I, P, P, P, I,
-                      I, I, P, I, P, P]),
+                     [P, I, I, P, P, I, I, I, I, P, I, I] + IX + TB + [I, I]
+                     + TB + [P, P]),
                     ("align_automaton_launch",
-                     [P, I, I, P, P, I, I, I, I, P, I, I, P, I, P, P, P, I,
-                      I, I, P, I, P, P]),
+                     [P, I, I, P, P, I, I, I, I, P, I, I] + IX + TB + [I, I]
+                     + TB + [P, P]),
                     ("dp_log_stitch_launch",
                      [P, I, P, I, P, I, P, P] + [I] * 9 + [P, P, P]),
-                    ("compose_launch", [P, I, P, I, I, I, P, P])):
+                    ("compose_launch", [P, I, P, I, I, I, P, P]),
+                    # csrc/peer.cu: a tp view's blocks between processes
+                    ("peer_alloc", [I, ctypes.c_size_t, PP]),
+                    ("peer_free", [P]),
+                    ("peer_export", [P, P]),
+                    ("peer_open", [I, P, PP]),
+                    ("peer_close", [P]),
+                    ("peer_bus_id", [I, ctypes.c_char_p, I]),
+                    ("peer_device_of", [ctypes.c_char_p, IP]),
+                    ("peer_can_access", [I, I, IP])):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

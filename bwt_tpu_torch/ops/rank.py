@@ -89,23 +89,44 @@ def make_buckets(words: torch.Tensor, length: int):
     return buckets.contiguous(), occ[-1]
 
 
-def take_fill(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def take_fill(table: torch.Tensor, idx: torch.Tensor, tp=None,
+              n: int | None = None) -> torch.Tensor:
     """``table[idx]`` along dim 0 with ``jnp.take``'s default semantics:
     indices in [-n, 0) wrap, indices further out read the dtype
-    minimum (in every column)."""
-    n = table.shape[0]
+    minimum (in every column).
+
+    ``tp`` (an ``index.Shard``) is the tp form, the counterpart of
+    ``bwt_tpu``'s ``take_sharded`` / ``_rows``: ``table`` is this rank's
+    block of a table of ``n`` rows cut in blocks of ``table.shape[0]``
+    rows.  The index wraps and is checked against the global ``n`` first;
+    then each rank gathers the rows it owns from its block (clipped,
+    masked to zero elsewhere) and one all-reduce over the tp group
+    (``Shard.all_reduce``) makes the true rows on every rank.  Every rank
+    of the group must call it with the same indices, in the same order."""
+    if tp is None:
+        n = table.shape[0]
     idx = torch.where(idx < 0, idx + n, idx)
     oob = (idx < 0) | (idx >= n)
-    out = table[idx.clamp(0, n - 1).long()]
     fill = torch.iinfo(table.dtype).min
+    if tp is None:
+        out = table[idx.clamp(0, n - 1).long()]
+    else:
+        per = table.shape[0]
+        local = idx.to(torch.int64) - tp.coord * per
+        mine = (local >= 0) & (local < per)
+        out = table[local.clamp(0, per - 1)]
+        out = tp.all_reduce(torch.where(
+            mine.unsqueeze(-1) if out.dim() > idx.dim() else mine, out, 0))
     if out.dim() > idx.dim():
         return out.masked_fill(oob.unsqueeze(-1), fill)
     return out.masked_fill(oob, fill)
 
 
-def _rows(buckets: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """The bucket row covering (adjusted) index ``i``."""
-    return take_fill(buckets, i >> 6)
+def _rows(buckets: torch.Tensor, i: torch.Tensor, tp=None,
+          n: int | None = None) -> torch.Tensor:
+    """The bucket row covering (adjusted) index ``i``; ``tp`` and ``n``
+    (the global row count) as :func:`take_fill`'s."""
+    return take_fill(buckets, i >> 6, tp, n)
 
 
 def _lane_masks(r: torch.Tensor) -> torch.Tensor:
@@ -143,14 +164,15 @@ def _adjust(endloc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return idx - (idx > endloc).to(idx.dtype)
 
 
-def rank(buckets, endloc, c, idx):
+def rank(buckets, endloc, c, idx, tp=None, n=None):
     """rank of ``c`` in ``bwt[0:idx]`` with sentinel skipping; ``c`` and
-    ``idx`` broadcast together."""
+    ``idx`` broadcast together.  ``tp`` and ``n``: a tp view's block and
+    the global row count (:func:`take_fill`), here and below."""
     idx = torch.as_tensor(idx, dtype=torch.int32, device=buckets.device)
     c = torch.as_tensor(c, dtype=torch.int32, device=buckets.device)
     i = _adjust(endloc, idx)
     c, i = torch.broadcast_tensors(c, i)
-    return _row_rank(_rows(buckets, i), c, i & 63)
+    return _row_rank(_rows(buckets, i, tp, n), c, i & 63)
 
 
 def row_ranks_all4(rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -163,16 +185,16 @@ def row_ranks_all4(rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return wrap32(rows[..., :4].to(torch.int64) + cnts)
 
 
-def ranks_all4(buckets, endloc, idx):
+def ranks_all4(buckets, endloc, idx, tp=None, n=None):
     """All four symbol ranks at ``idx`` from one row fetch: (..., 4)."""
     i = _adjust(endloc, idx)
-    return row_ranks_all4(_rows(buckets, i), i & 63)
+    return row_ranks_all4(_rows(buckets, i, tp, n), i & 63)
 
 
-def bwt_char(buckets, endloc, idx):
+def bwt_char(buckets, endloc, idx, tp=None, n=None):
     """Character of the sentinel-full BWT at ``idx`` (idx != endloc)."""
     i = _adjust(endloc, idx)
-    return _row_char(_rows(buckets, i), i & 63)
+    return _row_char(_rows(buckets, i, tp, n), i & 63)
 
 
 def row_lf(rows, C, endloc, idx, r):
@@ -184,7 +206,7 @@ def row_lf(rows, C, endloc, idx, r):
     return torch.where(idx == endloc, torch.zeros_like(stepped), stepped)
 
 
-def lf(buckets, C, endloc, idx):
+def lf(buckets, C, endloc, idx, tp=None, n=None):
     """LF-mapping (seqindex.c:214-219), ``lf(endloc) == 0``."""
     i = _adjust(endloc, idx)
-    return row_lf(_rows(buckets, i), C, endloc, idx, i & 63)
+    return row_lf(_rows(buckets, i, tp, n), C, endloc, idx, i & 63)

@@ -11,7 +11,11 @@ K2 (``csrc/fm_rank.cuh``).  On the CPU the same wrappers run the plain
 versions, :func:`backward_search_plain`, :func:`unc_sa_plain` and
 :func:`locate_plain`, in which every read of a batch steps through its
 characters together, finished reads are masked out, and the loop stops
-once no read is active.  The reference's quirks are kept
+once no read is active.  Over a tp view (``parallel.tp_view``) the
+kernels run their tp form, each row read through the view's device table
+of block pointers, and the plain versions read every table through the
+tp form of ``rank.take_fill`` (a local gather and an all-reduce over
+'tp').  The reference's quirks are kept
 (seqindex.c:228-351):
   * ``reverse_search`` returns ``end - start + 1`` on completion and 0
     only if the interval emptied before the final character's update;
@@ -45,10 +49,18 @@ def take_c(C: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _fetch_pair(fmi: FMIndex, start, end):
+    """Bucket rows at (start, end): two gathers, or on a tp view one
+    stacked fetch and one all-reduce (``bwt_tpu``'s ``rows2``)."""
     ia = rank_ops._adjust(fmi.endloc, start)
     ib = rank_ops._adjust(fmi.endloc, end)
-    return (rank_ops._rows(fmi.buckets, ia), ia & 63,
-            rank_ops._rows(fmi.buckets, ib), ib & 63)
+    tp = fmi.tp
+    if tp is None:
+        return (rank_ops._rows(fmi.buckets, ia), ia & 63,
+                rank_ops._rows(fmi.buckets, ib), ib & 63)
+    ia, ib = torch.broadcast_tensors(ia, ib)
+    rows = rank_ops._rows(fmi.buckets, torch.stack([ia, ib]), tp,
+                          fmi.bucket_rows)
+    return rows[0], ia & 63, rows[1], ib & 63
 
 
 def _first_argmax4(x: torch.Tensor) -> torch.Tensor:
@@ -343,7 +355,9 @@ def backward_search_plain(fmi: FMIndex, patterns, lengths, *,
 
 
 def _check_index(fmi: FMIndex) -> None:
-    """The index layout the kernels read through raw pointers."""
+    """The index layout the kernels read through raw pointers; on a tp
+    view, the blocks and the view's device tables of their pointers."""
+    tp = fmi.tp
     for name in ("buckets", "C", "endloc", "sa_samples"):
         t = getattr(fmi, name)
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -352,6 +366,17 @@ def _check_index(fmi: FMIndex) -> None:
             or fmi.C.shape != (5,) or fmi.endloc.numel() != 1):
         raise ValueError("index must have (n, 8) buckets, (5,) C and a "
                          "scalar endloc")
+    if tp is None:
+        return
+    if (fmi.buckets.shape[0] != tp.bucket_per
+            or fmi.sa_samples.shape[0] != tp.sample_per):
+        raise ValueError("a tp view's blocks must hold its shard's rows")
+    if tp.tables is None:
+        raise ValueError("a tp view on a card reads its blocks through the "
+                         "device tables of their pointers, which "
+                         "parallel.shard_index makes on the card")
+    if tp.peers is not None and tp.peers.closed:
+        raise ValueError("this tp view was released (parallel.release_view)")
 
 
 def _stream(dev: torch.device) -> int:
@@ -359,16 +384,35 @@ def _stream(dev: torch.device) -> int:
 
 
 def _index_args(fmi: FMIndex) -> tuple:
-    """The index as the launch functions take it (fm::Index)."""
-    return (fmi.buckets.data_ptr(), fmi.buckets.shape[0], fmi.C.data_ptr(),
-            fmi.endloc.data_ptr())
+    """The index as the launch functions take it: the bucket table, its
+    rows and 0 (fm::Index), or on a tp view the device table of the
+    blocks' pointers, the global rows and the rows a block holds
+    (fm::IndexTp); then C and endloc."""
+    tp = fmi.tp
+    if tp is None:
+        table = (fmi.buckets.data_ptr(), fmi.buckets.shape[0], 0)
+    else:
+        table = (tp.tables["buckets"].data_ptr(), fmi.bucket_rows,
+                 tp.bucket_per)
+    return (*table, fmi.C.data_ptr(), fmi.endloc.data_ptr())
+
+
+def _sample_table(fmi: FMIndex, name: str) -> tuple:
+    """A sample table (``sa_samples`` or ``isa_samples``) as the launch
+    functions take it: pointer, rows and 0, or on a tp view the device
+    table of its blocks' pointers, the global rows and a block's rows."""
+    tp = fmi.tp
+    if tp is None:
+        t = getattr(fmi, name)
+        return t.data_ptr(), t.shape[0], 0
+    return tp.tables[name].data_ptr(), fmi.sample_rows, tp.sample_per
 
 
 def _samples_args(fmi: FMIndex) -> tuple:
     """The sampled suffix array as the launch functions take it
-    (fm::Samples)."""
-    return (fmi.sa_samples.data_ptr(), fmi.sa_samples.shape[0],
-            fmi.sa_rate.bit_length() - 1, fmi.length)
+    (fm::Samples / fm::SamplesTp)."""
+    return (*_sample_table(fmi, "sa_samples"), fmi.sa_rate.bit_length() - 1,
+            fmi.length)
 
 
 def _check_reads(patterns: torch.Tensor, lengths: torch.Tensor) -> None:
@@ -538,12 +582,12 @@ def unc_sa_flagged(fmi: FMIndex, idx, max_steps: int | None = None):
         live = (i & mask) != 0
         if not bool(live.any()):
             break
-        nxt = rank_ops.lf(fmi.buckets, fmi.C, fmi.endloc, i)
+        nxt = fmi.lf(i)
         i = torch.where(live, nxt, i)
         steps = steps + live.to(torch.int32)
         t += 1
     over = ((i & mask) != 0) & (limit == bound)
-    x = rank_ops.take_fill(fmi.sa_samples, i >> shift) + steps
+    x = fmi.sample_at(fmi.sa_samples, i >> shift) + steps
     pos = torch.where(x > fmi.length, x - (fmi.length + 1), x)
     return torch.where(over, i0, pos), over
 
@@ -730,8 +774,8 @@ def isa_window_plain(fmi: FMIndex, plo, width, *, W: int = 32):
     B = plo.shape[0]
     p_hi = torch.clamp(plo + width - 1, max=n)
     anchor = torch.clamp(((p_hi + r - 1) >> shift) << shift, 0, n)
-    nsamp = fmi.isa_samples.shape[0]
-    row = fmi.isa_samples[(anchor >> shift).clamp(0, nsamp - 1).long()]
+    # anchor in [0, n] keeps its sample in the table
+    row = fmi.sample_at(fmi.isa_samples, anchor >> shift)
     if n % r:
         # ISA[length] == 0 (the sentinel suffix is SA row 0) anchors the
         # tail window when length is not a multiple of the rate
@@ -746,19 +790,20 @@ def isa_window_plain(fmi: FMIndex, plo, width, *, W: int = 32):
         ok = (pcur >= floor) & (pcur <= p_hi) & (width > 0)
         sel = (jidx == (pcur - plo)[:, None]) & ok[:, None]
         out = torch.where(sel, row[:, None], out)
-        nxt = rank_ops.lf(fmi.buckets, fmi.C, fmi.endloc, row)
+        nxt = fmi.lf(row)
         row = torch.where(pcur > floor, nxt, row)
     return out
 
 
 def _isa_args(fmi: FMIndex) -> tuple:
-    """The inverse-SA samples as the launch functions take them."""
+    """The inverse-SA samples as the launch functions take them
+    (fm::Isa / fm::IsaTp, as :func:`_sample_table`)."""
     isa = fmi.isa_samples
     if isa is None:
         raise ValueError("isa_window requires an index with isa_samples")
     if isa.dtype != torch.int32 or not isa.is_contiguous():
         raise ValueError("index field isa_samples must be contiguous int32")
-    return isa.data_ptr(), isa.shape[0]
+    return _sample_table(fmi, "isa_samples")
 
 
 def _isa_window_kernel(fmi: FMIndex, plo, width, *, W: int = 32):

@@ -245,7 +245,7 @@ def service_round_flagged(fmi: FMIndex, bank, opc, row, off, ln, sp, ep, idx,
     i_arg = torch.where(is_crank, idx, zeros)
     crank = rank_ops.wrap32(
         search.take_c(fmi.C, c_arg).to(torch.int64)
-        + rank_ops.rank(fmi.buckets, fmi.endloc, c_arg, i_arg).to(torch.int64))
+        + fmi.rank(c_arg, i_arg).to(torch.int64))
     return torch.stack([matched_mms, matched_cont, start, end, osp, oep,
                         nmatched, alive.to(torch.int32), skips, pos_out,
                         crank, wbest, wrow]), over
@@ -278,7 +278,7 @@ def _service_kernel(fmi: FMIndex, bank, fields, *, resolve, ext, seed_rows,
                 or not f.is_contiguous()):
             raise ValueError(f"the lane fields must be contiguous (B,) int32 "
                              f"tensors on {dev}")
-    isa = search._isa_args(fmi) if ext else (None, 0)
+    isa = search._isa_args(fmi) if ext else (None, 0, 0)
     table = (None if seed_rows is None
              else search.SeedTable(rows=seed_rows, k=seed_k))
     if table is not None and not 1 <= seed_k <= 15:

@@ -1,7 +1,8 @@
 """Multi-device paths over ``torch.distributed``, one process a device:
-dp serving (``mesh``) and the sharded suffix sort (``suffix_dist``).  The
-tp-sharded index (``shard_index``, ``tp_view``, ``fmi_spec_tree``,
-``tp_locate``) raises NotImplementedError (ROADMAP Queue 1 item 7b)."""
+dp serving and the tp-sharded index (``mesh``: ``shard_index``,
+``tp_view``, ``fmi_spec_tree``, ``tp_locate``; ``peer``: a view's blocks
+shared between the ranks' cards) and the sharded suffix sort
+(``suffix_dist``)."""
 
 from bwt_tpu_torch.parallel.mesh import (
     Mesh,
@@ -10,6 +11,7 @@ from bwt_tpu_torch.parallel.mesh import (
     host_fetch,
     init_distributed,
     make_mesh,
+    release_view,
     replicate_index,
     shard_index,
     shard_patterns,
@@ -27,6 +29,7 @@ __all__ = [
     "gather_hits",
     "init_distributed",
     "make_mesh",
+    "release_view",
     "replicate_index",
     "shard_index",
     "sharded_search_step",

@@ -11,11 +11,19 @@ ranks' results:
   coordinate; the index is replicated into every rank's device.  The
   merge is an all-gather along 'dp' in batch order, so every rank ends
   with the full answer, equal to the single-device run's.
-* **tp** — the axis the sharded suffix sort runs along
-  (``parallel/suffix_dist.py``).  The tp-sharded index and its serving
-  (``shard_index``, ``tp_view``, ``fmi_spec_tree``, ``tp_locate``, a
-  driver over a mesh with tp > 1) are not ported yet and raise
-  NotImplementedError.
+* **tp** — the index's sequence tables (``bwt_words``, ``buckets``,
+  ``sa_samples``, ``isa_samples``) cut into contiguous blocks, one a tp
+  coordinate (``shard_index``, ``bwt_tpu``'s padded layout), for an index
+  larger than one card; C and endloc stay whole.  A ``tp_view`` of the
+  blocks serves every query: the plain versions (the CPU) gather from the
+  local block and all-reduce over 'tp' (``ops/rank.take_fill``), as
+  ``bwt_tpu`` psums; the kernels (a card) stay one launch each and read
+  the row they need from whichever rank's block holds it, through a
+  device table of the blocks' pointers (``parallel/peer.py`` maps the
+  peers' blocks).  Reads split along 'dp' only: the ranks of a tp group
+  run the same lanes, so the plain reads issue the same all-reduces on
+  every rank.  The sharded suffix sort runs along 'tp' too
+  (``parallel/suffix_dist.py``).
 
 The mesh lays ranks out as ``bwt_tpu.parallel.make_mesh`` lays out
 devices: rank ``r`` sits at ``dp = r // tp``, ``tp = r % tp``.  Where JAX
@@ -49,19 +57,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from bwt_tpu_torch.index import FMIndex
+from bwt_tpu_torch.index import FMIndex, Shard
 from bwt_tpu_torch.ops import search
 
 STAGED_BYTES = 0  # bytes the collectives copied between host and device
 MERGE_S = 0.0  # host seconds spent in the drivers' merges (merging())
-
-TP_TODO = "ROADMAP Queue 1 item 7b"
-
-
-def tp_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the tp-sharded index and its serving are not ported "
-        f"({TP_TODO})")
 
 
 def init_distributed(backend=None, init_method=None, world_size=None,
@@ -160,14 +160,6 @@ def make_mesh(n_devices: int | None = None, *, tp: int = 1,
     return Mesh(shape={"dp": dp, "tp": tp},
                 coords={"dp": me // tp, "tp": me % tp}, groups=groups,
                 lines=mine, device=device, backend=backend)
-
-
-def require_dp(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError for a mesh with tp > 1: the drivers serve
-    a replicated index over dp only."""
-    if mesh.shape["tp"] > 1:
-        raise tp_not_ported(f"{what} over a mesh with tp="
-                            f"{mesh.shape['tp']}")
 
 
 # --------------------------------------------------------------------------
@@ -284,24 +276,220 @@ def replicate_index(fmi: FMIndex, mesh: Mesh) -> FMIndex:
     return fmi.to(mesh.device)
 
 
+# --------------------------------------------------------------------------
+# tp: the sequence-sharded index
+# --------------------------------------------------------------------------
+
+_TABLES = ("bwt_words", "buckets", "sa_samples", "isa_samples")
+_KERNEL_TABLES = ("buckets", "sa_samples", "isa_samples")  # read by kernels
+
+
+def _index_specs(sharded: bool, has_isa: bool = True) -> dict:
+    """The placement of each index field: "tp" (cut into sequence blocks
+    over 'tp') or "replicated"."""
+    spec = {f: ("tp" if sharded else "replicated") for f in _TABLES}
+    spec.update(C="replicated", endloc="replicated")
+    if not has_isa:
+        del spec["isa_samples"]
+    return spec
+
+
+def fmi_spec_tree(fmi: FMIndex) -> dict:
+    """Each field's placement, as ``bwt_tpu``'s PartitionSpec tree gives
+    it: the sequence tables "tp" for a tp view, every field "replicated"
+    otherwise (``isa_samples`` only where the index has it)."""
+    return _index_specs(fmi.tp_axis is not None, fmi.isa_samples is not None)
+
+
+def block_rows(n: int, tp: int) -> int:
+    """The rows each block of an ``n``-row table holds: the table padded
+    with zero rows to a multiple of ``tp``, then cut in ``tp``."""
+    return (n + (-n) % tp) // tp
+
+
+def _block(x: torch.Tensor, per: int, coord: int) -> torch.Tensor:
+    """Rows ``[coord per, (coord + 1) per)`` of ``x`` padded with zero rows."""
+    part = x[coord * per:(coord + 1) * per]
+    pad = per - part.shape[0]
+    if pad:
+        part = torch.cat([part, part.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return part
+
+
 def shard_index(fmi: FMIndex, mesh: Mesh) -> FMIndex:
-    """Not ported: the tp-sharded index (ROADMAP Queue 1 item 7b)."""
-    raise tp_not_ported("shard_index")
+    """This rank's part of ``fmi`` cut along the sequence over 'tp'
+    (``bwt_tpu.parallel.shard_index``'s layout: each sequence table
+    zero-padded to a multiple of tp, block ``coords['tp']`` of it here; C
+    and endloc whole), on the rank's device, from an index on the host or
+    a card.  Only this rank's blocks are put on its device.  On a card
+    each block the kernels read is an allocation of its own, and the
+    ranks of the tp group exchange and open each other's blocks
+    (``parallel.peer``), so the view's device tables hold every block's
+    pointer; every rank of the group must call it.  Query the result
+    through :func:`tp_view`; :func:`release_view` is its teardown."""
+    tp, coord, dev = mesh.shape["tp"], mesh.coords["tp"], mesh.device
+    fields, blocks, pers = _cut(fmi, tp, coord, dev)
+    tables = peers = None
+    if dev.type == "cuda":
+        from bwt_tpu_torch.parallel import peer
+
+        ptrs, peers = peer.exchange(blocks, coord, tp, mesh.groups["tp"], dev)
+        tables = {f: torch.tensor(p, dtype=torch.int64, device=dev)
+                  for f, p in ptrs.items()}
+    shard = Shard(coord=coord, size=tp, word_per=pers["bwt_words"],
+                  bucket_per=pers["buckets"], sample_per=pers["sa_samples"],
+                  mesh=mesh, tables=tables, peers=peers)
+    return dataclasses.replace(fmi, **fields, shard=shard)
+
+
+def _cut(fmi: FMIndex, tp: int, coord: int, dev: torch.device):
+    """Block ``coord`` of each sequence table on ``dev`` (on a card, each
+    table the kernels read an allocation of its own, ``parallel.peer``)
+    and the whole C and endloc: (fields, {table: its peer.Block}, {table:
+    rows a block})."""
+    fmi.require_whole("shard_index")
+    spec = _index_specs(True, fmi.isa_samples is not None)
+    pers = {f: block_rows(getattr(fmi, f).shape[0], tp)
+            for f, where in spec.items() if where == "tp"}
+    fields, blocks = {}, {}
+    for f, where in spec.items():
+        x = getattr(fmi, f)
+        if where != "tp":
+            fields[f] = x.to(dev)
+            continue
+        part = _block(x, pers[f], coord).contiguous()
+        if dev.type == "cuda" and f in _KERNEL_TABLES:
+            from bwt_tpu_torch.parallel import peer
+
+            blocks[f], fields[f] = peer.alloc(part, dev)
+        else:
+            fields[f] = part.to(dev)
+    return fields, blocks, pers
+
+
+def view_in_process(fmi: FMIndex, tp: int, coord: int = 0) -> FMIndex:
+    """A tp view of ``fmi`` (on a card) whose ``tp`` blocks are all made in
+    this process, each an allocation of its own: block ``coord`` is the
+    view's, and its device tables point at every block.  The kernels'
+    tp form reads it as it reads a view of a group's blocks, without IPC
+    (how the card tests and ``chip_smoke.py`` hold that form to the
+    replicated kernels); its plain reads need ``tp`` 1.
+    :func:`release_view` frees the blocks."""
+    from bwt_tpu_torch.parallel import peer
+
+    dev = fmi.device
+    if dev.type != "cuda":
+        raise ValueError("view_in_process builds the kernels' tables on a "
+                         "card")
+    cuts = [_cut(fmi, tp, j, dev) for j in range(tp)]
+    fields, _, pers = cuts[coord]
+    tables = {f: torch.tensor([c[1][f].ptr for c in cuts], dtype=torch.int64,
+                              device=dev) for f in cuts[0][1]}
+    own = [b for c in cuts for b in c[1].values()]
+    shard = Shard(coord=coord, size=tp, word_per=pers["bwt_words"],
+                  bucket_per=pers["buckets"], sample_per=pers["sa_samples"],
+                  tables=tables, peers=peer.Peers(own=own, opened=[],
+                                                  device=dev))
+    return dataclasses.replace(fmi, **fields, shard=shard, tp_axis="tp")
 
 
 def tp_view(fmi_local: FMIndex, tp_axis: str = "tp") -> FMIndex:
-    """Not ported: the tp-sharded index (ROADMAP Queue 1 item 7b)."""
-    raise tp_not_ported("tp_view")
+    """Mark a :func:`shard_index` result as a tp view (``FMIndex.tp_axis``,
+    as ``bwt_tpu``'s marks one): every query then reads through the tp
+    forms.  Checks that the blocks hold the shard's rows."""
+    sh = fmi_local.shard
+    if sh is None:
+        raise ValueError("tp_view marks a shard_index result; this index is "
+                         "whole")
+    if tp_axis != "tp":
+        raise ValueError(f"tp_axis {tp_axis!r}: the mesh's tp axis is 'tp'")
+    want = dict(bwt_words=sh.word_per, buckets=sh.bucket_per,
+                sa_samples=sh.sample_per, isa_samples=sh.sample_per)
+    for f, per in want.items():
+        x = getattr(fmi_local, f)
+        if x is not None and x.shape[0] != per:
+            raise ValueError(f"{f}: a block of {x.shape[0]} rows where the "
+                             f"shard holds {per}")
+    for f, per in (("buckets", fmi_local.bucket_rows),
+                   ("sa_samples", fmi_local.sample_rows)):
+        if block_rows(per, sh.size) != want[f]:
+            raise ValueError(f"{f}: blocks of {want[f]} rows for a table of "
+                             f"{per} over tp={sh.size}")
+    return dataclasses.replace(fmi_local, tp_axis=tp_axis)
 
 
-def fmi_spec_tree(fmi: FMIndex):
-    """Not ported: the tp-sharded index (ROADMAP Queue 1 item 7b)."""
-    raise tp_not_ported("fmi_spec_tree")
+def _as_view(fmi: FMIndex) -> FMIndex:
+    """A shard_index result marked (the search steps take either)."""
+    if fmi.shard is not None and fmi.tp_axis is None:
+        return tp_view(fmi)
+    return fmi
+
+
+def release_view(fmi: FMIndex) -> None:
+    """The teardown of a tp view on the card (every rank of the group
+    calls it): each rank closes its mappings of the peers' blocks, the
+    group meets, then each frees its own (``parallel.peer.Peers.close``).
+    The view must not be queried after.  A no-op for a whole index and
+    for a view on the CPU."""
+    if fmi.shard is not None and fmi.shard.peers is not None:
+        fmi.shard.peers.close()
+
+
+def serving_index(fmi: FMIndex, mesh: Mesh) -> FMIndex:
+    """The index a driver serves from on this rank: for a dp mesh the
+    whole index on the rank's device (:func:`replicate_index`); for tp > 1
+    ``fmi`` itself where it is a view of this mesh's shard, else
+    ``tp_view(shard_index(fmi, mesh))``, which the driver releases when it
+    is done (:func:`done_serving`)."""
+    if mesh.shape["tp"] == 1:
+        if fmi.shard is not None:
+            raise ValueError("a tp view served over a mesh with tp=1")
+        return replicate_index(fmi, mesh)
+    if fmi.shard is None:
+        return tp_view(shard_index(fmi, mesh))
+    return _mesh_view(fmi, mesh)
+
+
+def _mesh_view(fmi: FMIndex, mesh: Mesh) -> FMIndex:
+    """``fmi``, a shard_index result or its view, marked, and checked to
+    hold this rank's block of ``mesh``'s tp group."""
+    fmi = _as_view(fmi)
+    if fmi.shard is None or (fmi.shard.size, fmi.shard.coord) != (
+            mesh.shape["tp"], mesh.coords["tp"]):
+        raise ValueError(
+            "the index is not a tp view of this rank's block of the mesh "
+            f"(tp={mesh.shape['tp']}, tp coordinate {mesh.coords['tp']})")
+    return fmi
+
+
+def done_serving(served: FMIndex, given: FMIndex) -> None:
+    """Release ``served`` if :func:`serving_index` made it from the whole
+    index ``given``."""
+    if given.shard is None and served.shard is not None:
+        release_view(served)
+
+
+def _locate_step(fmi: FMIndex, patterns, lengths):
+    """Backward search (one K3 launch on a card), the SA walk of every
+    interval start (one K4 launch), -1 where the interval emptied before
+    the final character, and the match counts."""
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=fmi.device)
+    r = search.backward_search(fmi, patterns, lengths)
+    pos = search.unc_sa(fmi, r["start"])
+    pos = torch.where(search._emptied_early(r, lengths), -1, pos)
+    counts = torch.where(r["alive"], r["end"] - r["start"], 0)
+    return pos, counts
 
 
 def tp_locate(fmi_sharded: FMIndex, patterns, lengths, mesh: Mesh):
-    """Not ported: the tp-sharded index (ROADMAP Queue 1 item 7b)."""
-    raise tp_not_ported("tp_locate")
+    """Locate (backward search, then the SA walk, seqindex.c:228-277) of
+    this rank's dp share of a batch (:func:`shard_patterns`) over a
+    tp-sharded index (a :func:`shard_index` result or its view): K3 then
+    K4 over the view on a card, the plain versions with their all-reduces
+    over 'tp' on the CPU.  Returns this rank's shards of (positions,
+    counts), which :func:`gather_hits` joins; equal to the single-device
+    ``search.locate`` and ``search.count_matches``."""
+    return _locate_step(_mesh_view(fmi_sharded, mesh), patterns, lengths)
 
 
 def shard_patterns(patterns, lengths, mesh: Mesh):
@@ -319,19 +507,16 @@ def shard_patterns(patterns, lengths, mesh: Mesh):
 
 
 def sharded_search_step(fmi: FMIndex, patterns, lengths, mesh: Mesh):
-    """One data-parallel search step on this rank's share: the backward
-    search (one K3 launch on a card), the SA walk of every interval
-    start (one K4 launch), -1 where the interval emptied before the final
-    character, the match counts, and ``total``, the matched reads of the
-    whole batch (an all-reduce along 'dp').  Returns ``(positions,
-    counts, total)``: the rank's (B/dp,) shards, where ``bwt_tpu``
-    returns global arrays (:func:`gather_hits` joins them), and a 0-d
-    tensor."""
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=fmi.device)
-    r = search.backward_search(fmi, patterns, lengths)
-    pos = search.unc_sa(fmi, r["start"])
-    pos = torch.where(search._emptied_early(r, lengths), -1, pos)
-    counts = torch.where(r["alive"], r["end"] - r["start"], 0)
+    """One search step on this rank's dp share, over a replicated index or
+    a tp-sharded one (a :func:`shard_index` result or its view): the
+    backward search (one K3 launch on a card), the SA walk of every
+    interval start (one K4 launch), -1 where the interval emptied before
+    the final character, the match counts, and ``total``, the matched
+    reads of the whole batch (an all-reduce along 'dp' only: the ranks of
+    a tp group hold the same lanes).  Returns ``(positions, counts,
+    total)``: the rank's (B/dp,) shards, where ``bwt_tpu`` returns global
+    arrays (:func:`gather_hits` joins them), and a 0-d tensor."""
+    pos, counts = _locate_step(_as_view(fmi), patterns, lengths)
     hits = (pos >= 0).sum(dtype=torch.int32).reshape(1)
     return pos, counts, _all_reduce(mesh, "dp", hits)[0]
 

@@ -4,13 +4,16 @@
     python3 chip_smoke.py [--seed N] [--out FILE]
     python3 chip_smoke.py --rna-walls N   # rna_seq's device-engine wall alone
     python3 chip_smoke.py --mesh-only 25  # phase 11 alone, at 2^25 bases
+    python3 chip_smoke.py --tp-only 25    # phase 11's tp meshes alone
 
 Phases, one output line each (phases 2 and 7 one per case, phase 10 three, phase 11 six a world), every number beside
 the card's name and power limit:
   0. the card (torch and nvidia-smi);
   1. the CUDA kernel build from csrc/ (nvcc, one per source, in parallel),
-     and beside it the automatons K10 and K9 built apart at tiles 1 and 8
-     (not the package's tile, 4), to be timed in phases 7 and 10;
+     with the registers of each search kernel's replicated and tp
+     instantiations, and beside it the automatons K10 and K9 built apart at
+     tiles 1 and 8 (not the package's tile, 4), to be timed in phases 7
+     and 10;
   2. the DP kernels against their plain PyTorch versions on the card, at
      the stitch shapes the aligner uses and at a taller one (a block a
      job): the fill's vals and ptrs and both outputs of the fused stitch
@@ -124,8 +127,21 @@ the card's name and power limit:
      rna_seq on phase 10's reads (K9), each equal on every rank to this
      process's single-device run, with each rank's launches, wall, the
      merge's share of it (parallel.mesh.MERGE_S) and the bytes the gloo
-     collectives staged through the host (STAGED_BYTES).  A failed or
-     overrunning rank fails the phase;
+     collectives staged through the host (STAGED_BYTES).  Then, in the
+     gloo world, the tp meshes dp 1 x tp 4 and dp 2 x tp 2: each rank loads
+     the index from its npz on the host and serves from
+     tp_view(shard_index(...)) (the card's bytes the view holds beside the
+     whole index's); twice each, tp_locate + gather_hits and
+     sharded_search_step on phase 4's 30-mers (K3, K4), search_reads
+     (anchor_scan), align_reads on both kinds of read (K10, K11a, K11b; K5
+     for the view's seed table) and rna_seq (K9), each equal to the
+     single-device run on every rank with its launches through the view;
+     the nine tp kernels against the plain tp path (the gloo all-reduces)
+     on a 2^16-base genome, 2^10 reads each, tolerance 0; and, on the first
+     mesh, each tp kernel timed on rank 0 at the main path's shapes beside
+     the replicated kernel on the same inputs while the others wait at a
+     barrier with their blocks mapped.  A failed or overrunning rank fails
+     the phase;
   9. one torch.profiler window over each exact-search path and over
      the device engines of rna_seq and single_align, last because the
      profiler slows every later launch of its process: locate plain and
@@ -141,7 +157,9 @@ aligners': single_align fills inside the
 stitch kernels; K4's are the unc_sa_range scan's: the service kernel walks
 inside its own launch; K7's and the executor stitch's are the host
 engines' and the escapes', K9's and K10-K11b's the device engines').
-Then one JSON line with the thirteen kernels, the nvidia-smi line, and as
+Then one JSON line with the thirteen kernels (``tp_launches``: the tp
+form's launches on rank 0's runs of phase 11's tp paths, null for a kernel
+that reads no index), the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises and exits non-zero; so does a machine without CUDA.
 
@@ -2845,6 +2863,34 @@ def registers_of(fragment: str, report: str | None = None) -> list[int]:
     return sorted(int(r) for name, r in found if fragment in name)
 
 
+# the kernels with a tp form, by the name their entry function carries
+TP_ENTRIES = (("K3", "backward_search_kernel"), ("K4", "unc_sa_kernel"),
+              ("locate", "locate_kernel"), ("anchor_scan", "anchor_scan_kernel"),
+              ("K5", "seed_rows_kernel"), ("K6", "isa_window_kernel"),
+              ("K7", "service_kernel"), ("K9", "rnaseq_automaton_kernel"),
+              ("K10", "align_automaton_kernel"))
+
+
+def registers_by_form(report: str | None = None) -> dict:
+    """{kernel: (registers of its replicated instantiations, of its tp
+    ones)} for the kernels of TP_ENTRIES, from a compiler report (phase
+    1's by default): the form is the last template argument of each
+    (``kTp``), read from the entry function's mangled name."""
+    from bwt_tpu_torch.ops import _kernels
+
+    found = re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'\n"
+                       r"(?:.*\n){0,3}?.*Used (\d+) registers",
+                       _kernels.LAST_REPORT if report is None else report)
+    out = {key: ([], []) for key, _ in TP_ENTRIES}
+    for key, entry in TP_ENTRIES:
+        for name, r in found:
+            m = re.search(rf"\d{entry}I.*?E+v", name)
+            if m:
+                tp = re.findall(r"Lb([01])E", m.group(0))[-1] == "1"
+                out[key][tp].append(int(r))
+    return {k: (sorted(a), sorted(b)) for k, (a, b) in out.items()}
+
+
 # The automatons K10 and K9 at other tiles than the package's
 # (svc::kAutomatonTile), and the service kernel K7 with each of its choices
 # turned off, built apart to be timed beside the package: the package builds
@@ -3726,6 +3772,161 @@ def phase_search_reads(fmi, codes_np, rng, nreads, tag, read_len=50,
 
 
 # --------------------------------------------------------------------------
+# the tp form of the search kernels: the cases it is held on
+# --------------------------------------------------------------------------
+
+# the kernels that read an index through fm::IndexT, and the launch count
+# each wrapper keeps
+TP_KERNELS = (("K3", "search", "BS_LAUNCHES"),
+              ("K4", "search", "UNC_LAUNCHES"),
+              ("locate", "search", "LOCATE_LAUNCHES"),
+              ("anchor_scan", "search", "ANCHOR_LAUNCHES"),
+              ("K5", "search", "SEED_LAUNCHES"),
+              ("K6", "search", "ISA_LAUNCHES"),
+              ("K7", "service", "SERVICE_LAUNCHES"),
+              ("K9", "automaton", "AUTOMATON_LAUNCHES"),
+              ("K10", "automaton", "ALIGN_LAUNCHES"))
+
+
+def tp_launches(zero=False) -> dict:
+    """The launch counts of :data:`TP_KERNELS`, set to 0 with ``zero``."""
+    import importlib
+
+    out = {}
+    for key, mod, name in TP_KERNELS:
+        m = importlib.import_module(f"bwt_tpu_torch.ops.{mod}")
+        if zero:
+            setattr(m, name, 0)
+        out[key] = getattr(m, name)
+    return out
+
+
+def tp_inputs(fmi, codes, rng, device, n) -> dict:
+    """The inputs the tp kernels are held on (:func:`tp_cases`), on
+    ``device``, from the genome ``codes`` of the index ``fmi`` (whole, on
+    any device; its banks only): ``n`` mixed reads (mixed_reads) for the
+    searches, the same reads from random intervals (mode 1, rows out of
+    the table included), every row of the suffix array in steps for the
+    walks, ``n`` exact 30-mers for locate, ``n`` 50-bp reads for the anchor
+    hunts, windows of widths -2..40 across the genome, a service round of
+    ``n`` fuzzed lanes (service_lanes), and ``n`` reads each for the two
+    automatons (complemented 50-mers; 80-bp reads with a substitution,
+    both strands)."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.models.batch_exec import QueryService
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    m = fmi.length
+    pats, lens = mixed_reads(rng, codes, n)
+    starts = rng.integers(0, m - 30, size=n)
+    kmers = codes[np.add.outer(starts, np.arange(30))].astype(np.int32)
+    starts = rng.integers(0, m - 50, size=n)
+    sr = codes[np.add.outer(starts, np.arange(50))]
+    bank, fields = service_lanes(rng, codes, n, R=64, Lb=112)
+    rsvc = QueryService(fmi)
+    _, rl = rsvc.add_reads_batch(complemented_reads(rng, codes, n)[1])
+    asvc = QueryService(fmi)
+    areads = mutated_reads(rng, codes, n)[1]
+    asvc.add_reads_batch(areads, with_revcomp=True)
+    R, Bp = rsvc.bank8.shape[0], asvc.bank8.shape[0] // 2
+    rlens, alens = np.zeros(R, np.int32), np.zeros(Bp, np.int32)
+    rlens[:len(rl)] = rl
+    alens[:len(areads)] = [len(r) for r in areads]
+    return dict(
+        pats=dev(pats), lens=dev(lens),
+        s0=dev(rng.integers(-2 * m, 2 * m, size=n).astype(np.int32)),
+        e0=dev(rng.integers(-2 * m, 2 * m, size=n).astype(np.int32)),
+        rows=torch.arange(0, m + 1, max(1, (m + 1) // (4 * n)),
+                          dtype=torch.int32, device=device),
+        kmers=dev(kmers), klens=dev(np.full(n, 30, np.int32)),
+        sr=dev(sr), srlens=dev(np.full(n, 50, np.int32)),
+        plo=dev(rng.integers(-40, m + 40, size=n).astype(np.int32)),
+        wid=dev(rng.integers(-2, 41, size=n).astype(np.int32)),
+        bank=dev(bank), fields=dev(fields).unbind(0),
+        rbank=rsvc.bank8.to(device), rlens=dev(rlens),
+        rlive=torch.arange(R, device=device) < len(rl),
+        abank=asvc.bank8.to(device), alens=dev(alens),
+        alive=torch.arange(Bp, device=device) < len(areads))
+
+
+def tp_cases(fmi, x, plain=False) -> dict:
+    """Each kernel of :data:`TP_KERNELS` on the inputs ``x``
+    (:func:`tp_inputs`), as a call that returns its outputs: through the
+    wrapper (the kernel on a card, the replicated or the tp form by the
+    index) or, with ``plain``, through its plain version (on a tp view,
+    the local gathers and the all-reduces over 'tp')."""
+    from bwt_tpu_torch.models import exact
+    from bwt_tpu_torch.models.batch_exec import _service_core
+    from bwt_tpu_torch.ops import automaton, search
+
+    def bs(**kw):
+        fn = search.backward_search_plain if plain else search.search_lanes
+        r = fn(fmi, x["pats"], x["lens"], **kw)
+        return [r[f].int() for f in search._FIELDS]
+
+    def hunt(reverse):
+        if not plain:
+            return list(exact.anchor_scan(fmi, x["sr"], x["srlens"],
+                                          min_anchor=20, reverse=reverse))
+        p = x["sr"].int()
+        if reverse:
+            p = exact._plain_reverse(p, x["srlens"])
+        return list(exact.anchor_scan_plain(fmi, p, x["srlens"],
+                                            min_anchor=20))
+
+    def walk(idx):
+        return (search.unc_sa_plain if plain else search.unc_sa)(fmi, idx)
+
+    return {
+        "K3": lambda: (bs(resolve_n=True) + bs()
+                       + bs(resolve_n=True, start=x["s0"], end=x["e0"])),
+        "K4": lambda: [walk(x["rows"])],
+        "locate": lambda: [(search.locate_plain if plain else search.locate)(
+            fmi, x["kmers"], x["klens"])],
+        "anchor_scan": lambda: hunt(False) + hunt(True),
+        "K5": lambda: [(search._seed_rows_plain if plain
+                        else search._seed_rows)(fmi, 6)],
+        "K6": lambda: [(search.isa_window_plain if plain
+                        else search.isa_window)(fmi, x["plo"], x["wid"])],
+        "K7": lambda: list(_service_core(fmi, x["bank"], *x["fields"],
+                                         resolve=True, ext=True,
+                                         plain=plain)),
+        "K9": lambda: [automaton.rna_seq_automaton_packed(
+            fmi, x["rbank"], x["rlens"], x["rlive"], ac=14, cc=10,
+            resolve=True, plain=plain)],
+        "K10": lambda: [automaton.align_automaton_packed(
+            fmi, x["abank"], x["alens"], x["alive"], fmi.length,
+            anchor_len=12, resolve=True, plain=plain)],
+    }
+
+
+def tp_outcome(fn):
+    """What a case gave: its outputs on the host, or the type of what it
+    raised (a walk from a row past the suffix array raises in both
+    forms)."""
+    import torch
+
+    try:
+        out = fn()
+    except RuntimeError as e:
+        return type(e)
+    torch.cuda.synchronize()
+    return [t.cpu() for t in out]
+
+
+def tp_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, type) or isinstance(b, type):
+        return a is b
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh (bwt_tpu_torch.parallel), in child processes
 # --------------------------------------------------------------------------
 
@@ -3783,11 +3984,13 @@ def _mesh_inputs(workdir: Path, fmi, codes_np, keep) -> None:
              pos=keep["rna_seq"][1])
 
 
-def _mesh_rank(workdir: Path, world: int, device="cuda:0") -> dict:
+def _mesh_rank(workdir: Path, world: int, device="cuda:0",
+               tp_only: bool = False) -> dict:
     """One rank's run of the mesh phase: the sharded build over a tp =
     world mesh, then the four serving paths over a dp = world mesh, each
     twice (its first run in this process, then again), every output held
-    to the single-device run's, tolerance 0."""
+    to the single-device run's, tolerance 0; then, in a world of more than
+    one rank, the tp meshes (:func:`_tp_rank`), alone with ``tp_only``."""
     import pickle
 
     import numpy as np
@@ -3802,9 +4005,19 @@ def _mesh_rank(workdir: Path, world: int, device="cuda:0") -> dict:
     from bwt_tpu_torch.parallel import suffix_dist
 
     dev = torch.device(device)
+    out = dict(rank=dist.get_rank(), paths={})
+    step = dict(np.load(workdir / "search_step.npz"))
+    sr = dict(np.load(workdir / "search_reads.npz"))
+    sr_reads = sr.pop("reads")
+    align = pickle.loads((workdir / "align.pkl").read_bytes())
+    rna = dict(np.load(workdir / "rna_seq.npz"))
+    if tp_only:
+        out["tp"] = _tp_rank(workdir, world, dev, step, sr, sr_reads, align,
+                             rna)
+        dist.barrier()
+        return out
     serve = parallel.make_mesh(world, tp=1, device=dev)
     build = parallel.make_mesh(world, tp=world, device=dev)
-    out = dict(rank=dist.get_rank(), paths={})
     codes = np.load(workdir / "genome.npy")
 
     # the build first, on a device that holds nothing else yet: the sort's
@@ -3849,11 +4062,6 @@ def _mesh_rank(workdir: Path, world: int, device="cuda:0") -> dict:
     fmi = parallel.replicate_index(
         bwt_tpu_torch.read_npz_index(workdir / "index.npz", device=dev),
         serve)
-    step = dict(np.load(workdir / "search_step.npz"))
-    sr = dict(np.load(workdir / "search_reads.npz"))
-    sr_reads = sr.pop("reads")
-    align = pickle.loads((workdir / "align.pkl").read_bytes())
-    rna = dict(np.load(workdir / "rna_seq.npz"))
     svc, rsvc = QueryService(fmi, codes), QueryService(fmi)
 
     def search_step():
@@ -3908,11 +4116,286 @@ def _mesh_rank(workdir: Path, world: int, device="cuda:0") -> dict:
     require(out["paths"]["align_subst"][0]["launches"]["K5"] == 1,
             "the first aligner run did not build its seed table by one K5 "
             "launch")
+    del fmi, svc, rsvc
+    torch.cuda.empty_cache()
+    if world > 1:
+        out["tp"] = _tp_rank(workdir, world, dev, step, sr, sr_reads, align,
+                             rna)
     dist.barrier()
     return out
 
 
-def mesh_child(workdir: Path, backend: str, world: int, rank: int) -> int:
+# phase 11's tp meshes (dp, tp) in the gloo world of four ranks on one card
+TP_MESHES = ((1, 4), (2, 2))
+TP_SMALL = (16, 1 << 10)  # the tp kernels against the plain tp path:
+                          # a 2^16-base genome, 2^10 reads a kernel
+# the kernels each tp path must launch through the view, in each run
+TP_NEEDS = {"tp_locate": ("K3", "K4"), "search_step": ("K3", "K4"),
+            "search_reads": ("anchor_scan",),
+            "align_subst": ("K10", "K11a", "K11b"),
+            "align_indel": ("K10", "K11a", "K11b"), "rna_seq": ("K9",)}
+TP_TIME_REPS = 10
+
+
+def _card_bytes(fmi) -> int:
+    """The card's bytes an index holds: its tensors on a card, and a tp
+    view's device tables of block pointers."""
+    import torch
+
+    ts = [getattr(fmi, f) for f in ("bwt_words", "buckets", "sa_samples",
+                                    "isa_samples", "C", "endloc")]
+    if fmi.shard is not None and fmi.shard.tables:
+        ts += list(fmi.shard.tables.values())
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor) and t.device.type == "cuda")
+
+
+def _tp_rank(workdir: Path, world: int, dev, step, sr, sr_reads, align,
+             rna) -> dict:
+    """One rank's tp meshes of phase 11: for each of TP_MESHES, the index
+    loaded from its npz on the host, shard_index + tp_view (the card's
+    bytes the view holds beside the whole index's), then twice each
+    tp_locate + gather_hits and sharded_search_step on phase 4's 30-mers,
+    search_reads on phase 8's reads, align_reads on phase 5's two kinds
+    and rna_seq on phase 10's, each equal to the single-device run, with
+    its launches through the view; then the tp kernels against the plain
+    tp path (the gloo all-reduces) on a 2^16-base genome, 2^10 reads each,
+    tolerance 0.  On the first mesh, rank 0 then times each tp kernel at
+    the main path's shapes beside the replicated kernel on the same
+    inputs, while the others wait at a barrier with their blocks mapped."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch import parallel
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+    from bwt_tpu_torch.models.batch_exec import QueryService
+    from bwt_tpu_torch.parallel import mesh as pmesh
+
+    codes = np.load(workdir / "genome.npy")
+    host = bwt_tpu_torch.read_npz_index(workdir / "index.npz", device="cpu")
+    whole = sum(getattr(host, f).numel() * 4 for f in (
+        "bwt_words", "buckets", "sa_samples", "isa_samples", "C", "endloc"))
+    rank = dist.get_rank()
+    out = {}
+    for dp, tp in TP_MESHES:
+        mesh = parallel.make_mesh(world, tp=tp, device=dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        view = parallel.tp_view(parallel.shard_index(host, mesh))
+        torch.cuda.synchronize()
+        rec = dict(shard_s=time.perf_counter() - t0, held=_card_bytes(view),
+                   whole=whole, paths={})
+        svc, rsvc = QueryService(view, codes), QueryService(view)
+
+        def tp_locate():
+            p, ln = parallel.shard_patterns(step["pats"], step["lens"], mesh)
+            pos, counts = parallel.tp_locate(view, p, ln, mesh)
+            return (parallel.gather_hits(pos, mesh),
+                    parallel.host_fetch([counts], mesh)[0])
+
+        def search_step():
+            p, ln = parallel.shard_patterns(step["pats"], step["lens"], mesh)
+            pos, _, total = parallel.sharded_search_step(view, p, ln, mesh)
+            return parallel.gather_hits(pos, mesh), int(total)
+
+        def aligned(kind):
+            return lambda: _norm(aligner.align_reads(
+                view, codes, align[kind][0], service=svc, with_strand=True,
+                mesh=mesh))
+
+        paths = (
+            ("tp_locate", tp_locate,
+             lambda got: (np.array_equal(got[0], step["pos"])
+                          and np.array_equal(got[1], step["counts"]))),
+            ("search_step", search_step,
+             lambda got: (np.array_equal(got[0], step["pos"])
+                          and got[1] == int((step["pos"] >= 0).sum()))),
+            ("search_reads", lambda: exact.search_reads(view, sr_reads,
+                                                        mesh=mesh),
+             lambda got: all(np.array_equal(got[k], sr[k]) for k in sr)),
+            ("align_subst", aligned("subst"),
+             lambda got: got == align["subst"][1]),
+            ("align_indel", aligned("indel"),
+             lambda got: got == align["indel"][1]),
+            ("rna_seq", lambda: rnaseq.rna_seq(view, rna["reads"],
+                                               service=rsvc, mesh=mesh),
+             lambda got: np.array_equal(got, rna["pos"])))
+        for name, fn, ok in paths:
+            runs = []
+            for _ in range(2):
+                dist.barrier()
+                _mesh_counts(zero=True)
+                tp_launches(zero=True)
+                merge = pmesh.MERGE_S
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = {**_mesh_counts(), **tp_launches()}
+                require(ok(got), f"{name} over the tp view (dp {dp}, tp {tp}) "
+                                 f"differs from the single-device run")
+                missing = [k for k in TP_NEEDS[name] if counts[k] == 0]
+                require(not missing, f"{name} over the tp view: rank {rank} "
+                                     f"launched no {missing} ({counts})")
+                runs.append(dict(s=wall, merge_s=pmesh.MERGE_S - merge,
+                                 launches=counts))
+            rec["paths"][name] = runs
+        del svc, rsvc
+
+        if (dp, tp) == TP_MESHES[0]:
+            rec["small"] = _tp_small(mesh, dev)
+            dist.barrier()
+            if rank == 0:
+                rec["times"] = _tp_times(host, view, codes, step, sr_reads,
+                                         align, rna)
+            dist.barrier()  # the others wait here, their blocks mapped
+        parallel.release_view(view)
+        torch.cuda.empty_cache()
+        out[f"dp{dp}tp{tp}"] = rec
+    return out
+
+
+def _tp_small(mesh, dev) -> dict:
+    """The nine tp kernels against the plain tp path (the gloo all-reduces)
+    over a view of a 2^16-base genome's index, 2^10 reads each, tolerance
+    0."""
+    import numpy as np
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch import parallel
+
+    bits, n = TP_SMALL
+    rng = np.random.default_rng(bits)
+    small_codes = rng.integers(0, 4, 1 << bits).astype(np.uint8)
+    small = bwt_tpu_torch.build_index(small_codes, sa_sample_rate=8,
+                                      device="cpu")
+    sview = parallel.tp_view(parallel.shard_index(small, mesh))
+    x = tp_inputs(small, small_codes, rng, dev, n)
+    plain = tp_cases(sview, x, plain=True)
+    checked = {}
+    t0 = time.perf_counter()
+    for name, fn in tp_cases(sview, x).items():
+        tp_launches(zero=True)
+        got = tp_outcome(fn)
+        launched = tp_launches()[name]
+        want = tp_outcome(plain[name])
+        require(tp_equal(got, want), f"the tp form of {name} differs "
+                                     f"from the plain tp path")
+        require(launched > 0, f"{name} over the view launched nothing")
+        checked[name] = "raised" if isinstance(got, type) else "equal"
+    parallel.release_view(sview)
+    return dict(s=time.perf_counter() - t0, checked=checked)
+
+
+def _tp_times(host, view, codes, step, sr_reads, align, rna) -> dict:
+    """Each tp kernel on ``view`` at the main path's shapes beside the
+    same kernel over a view of as many blocks allocated in this process
+    (``view_in_process``: the form without IPC mappings) and the
+    replicated kernel on the whole index on this card, the same inputs:
+    {kernel: {tp_ms, local_ms, replicated_ms, runs, shape}}.  K3 and locate on phase 4's
+    2^20 30-mers, K4 on 2^20 rows, the anchor hunt on a search_reads chunk
+    of phase 8's reads (uint8, reversed, min_anchor 20), K5 at k = 12, K6
+    on 2^16 windows of widths 0..32, K7 on a fuzzed round of 2^16 lanes
+    (ext, resolve), K9 and K10 on a chunk of phase 10's and of phase 5's
+    substitution reads."""
+    import numpy as np
+    import torch
+
+    from bwt_tpu_torch.config import DEFAULT
+    from bwt_tpu_torch.ops import automaton, search, service
+
+    dev = view.device
+    whole = host.to(dev)
+    rng = np.random.default_rng(1)
+    n = whole.length
+    chunk = DEFAULT.search_batch
+    kmers = torch.from_numpy(step["pats"]).to(dev)
+    klens = torch.from_numpy(step["lens"]).to(dev)
+    rows = torch.from_numpy(np.concatenate([
+        [0, int(whole.endloc), n], rng.integers(0, n + 1, 1 << 20)])
+        .astype(np.int32)).to(dev)
+    creads = torch.from_numpy(np.ascontiguousarray(sr_reads[:1 << 15])).to(dev)
+    clens = torch.full((creads.shape[0],), creads.shape[1], dtype=torch.int32,
+                       device=dev)
+    plo = torch.from_numpy(rng.integers(-40, n + 40, 1 << 16)
+                           .astype(np.int32)).to(dev)
+    wid = torch.from_numpy(rng.integers(0, 33, 1 << 16).astype(np.int32)
+                           ).to(dev)
+    bank, fields = service_lanes(rng, codes, 1 << 16)
+    bank = torch.from_numpy(bank).to(dev)
+    fields = torch.from_numpy(fields).to(dev).unbind(0)
+    table = search.build_seed_table(whole, k=SEED_K)
+    rb = automaton_bank(whole, rna["reads"][:chunk], "rna")
+    ab = automaton_bank(whole, align["subst"][0][:chunk], "align")
+
+    def cases(fmi):
+        return {
+            "K3": (lambda: search.backward_search(fmi, kmers, klens),
+                   f"B={kmers.shape[0]} L=30"),
+            "K4": (lambda: search.unc_sa(fmi, rows), f"B={rows.shape[0]}"),
+            "locate": (lambda: search.locate_kernel(fmi, kmers, klens),
+                       f"B={kmers.shape[0]} L=30"),
+            "anchor_scan": (lambda: search.anchor_scan_kernel(
+                fmi, creads, clens, min_anchor=20, reverse=True),
+                f"B={creads.shape[0]} L={creads.shape[1]} uint8 reversed"),
+            "K5": (lambda: search._seed_rows(fmi, SEED_K), f"k={SEED_K}"),
+            "K6": (lambda: search.isa_window(fmi, plo, wid),
+                   f"B={plo.shape[0]} W=32"),
+            "K7": (lambda: service.service_round_packed(
+                fmi, bank, *fields, resolve=True, ext=True, walk=True),
+                f"B={fields[0].shape[0]}"),
+            "K9": (lambda: automaton.rna_seq_automaton_packed(
+                fmi, *rb[:3], table.rows, ac=DEFAULT.rnaseq_anchor_cutoff,
+                cc=DEFAULT.rnaseq_cont_cutoff, resolve=rb[3],
+                seed_k=table.k), f"R={rb[0].shape[0]}"),
+            "K10": (lambda: automaton.align_automaton_packed(
+                fmi, *ab[:3], fmi.length, table.rows,
+                anchor_len=DEFAULT.anchor_len, resolve=ab[3],
+                seed_k=table.k), f"Bp={ab[1].shape[0]}"),
+        }
+
+    from bwt_tpu_torch import parallel
+
+    local = parallel.mesh.view_in_process(whole, view.shard.size)
+    out = {}
+    forms = dict(tp=cases(view), local=cases(local), replicated=cases(whole))
+    for name in forms["tp"]:
+        want = tp_outcome(lambda: [torch.as_tensor(t) for t in _flat(
+            forms["replicated"][name][0]())])
+        for form in ("tp", "local"):
+            got = tp_outcome(lambda: [torch.as_tensor(t) for t in _flat(
+                forms[form][name][0]())])
+            require(tp_equal(got, want), f"the tp form of {name} ({form}) "
+                                         f"differs from the replicated kernel")
+        runs = {f"{form} {r}": cuda_ms(forms[form][name][0], TP_TIME_REPS,
+                                       ahead=True)
+                for r in (1, 2) for form in forms}
+        out[name] = {f"{form}_ms": (runs[f"{form} 1"] + runs[f"{form} 2"]) / 2
+                     for form in forms}
+        out[name].update(runs=runs, shape=forms["tp"][name][1])
+    parallel.release_view(local)
+    del whole, table
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flat(out):
+    """A wrapper's outputs as a list of tensors (a dict's values, a tuple,
+    one tensor)."""
+    import torch
+
+    if isinstance(out, dict):
+        return [v for v in out.values() if isinstance(v, torch.Tensor)]
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return list(out)
+
+
+def mesh_child(workdir: Path, backend: str, world: int, rank: int,
+               tp_only: bool = False) -> int:
     """A rank of the mesh phase (``--mesh-child``): joins the world, runs
     :func:`_mesh_rank` and writes its JSON beside the inputs."""
     import torch.distributed as dist
@@ -3923,7 +4406,7 @@ def mesh_child(workdir: Path, backend: str, world: int, rank: int) -> int:
         backend=backend, init_method=f"file://{workdir}/rdv_{backend}{world}",
         world_size=world, rank=rank, timeout=MESH_TIMEOUT_S)
     try:
-        out = _mesh_rank(workdir, world)
+        out = _mesh_rank(workdir, world, tp_only=tp_only)
         (workdir / f"rank_{backend}{world}_{rank}.json").write_text(
             json.dumps(out))
     finally:
@@ -3931,7 +4414,8 @@ def mesh_child(workdir: Path, backend: str, world: int, rank: int) -> int:
     return 0
 
 
-def mesh_world(workdir: Path, backend: str, world: int) -> list:
+def mesh_world(workdir: Path, backend: str, world: int,
+               tp_only: bool = False) -> list:
     """Start a world's ranks together (``chip_smoke.py --mesh-child``),
     wait for all; a rank that fails or overruns fails the phase, and the
     ranks still running are killed.  Returns each rank's JSON."""
@@ -3942,7 +4426,8 @@ def mesh_world(workdir: Path, backend: str, world: int) -> list:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
                      "--mesh-child", str(workdir), "--mesh-backend", backend,
-                     "--mesh-world", str(world), "--mesh-rank", str(r)],
+                     "--mesh-world", str(world), "--mesh-rank", str(r),
+                     *(["--mesh-tp-only"] if tp_only else [])],
                     cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + MESH_TIMEOUT_S + 60
         while any(p.poll() is None for p in procs):
@@ -3966,7 +4451,8 @@ def mesh_world(workdir: Path, backend: str, world: int) -> list:
                        .read_text()) for r in range(world)]
 
 
-def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib):
+def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib,
+               tp_only: bool = False):
     """Phase 11: bwt_tpu_torch.parallel on the card, in child processes
     (the parent's state untouched): a world of one rank over NCCL, then
     four ranks sharing the card over gloo, each rank a process of its own
@@ -3975,7 +4461,9 @@ def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib):
     and arrays to phase 3's, then runs sharded_search_step + gather_hits on
     phase 4's 30-mers, search_reads, align_reads (both kinds of read) and
     rna_seq with mesh= (dp = world), each equal to the single-device run
-    of phases 4, 5, 8 and 10 on every rank."""
+    of phases 4, 5, 8 and 10 on every rank; in the gloo world, then the tp
+    meshes (:func:`_tp_rank`; with ``tp_only`` the gloo world runs them
+    alone)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -3983,13 +4471,18 @@ def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib):
     workdir.mkdir(parents=True)
     _mesh_inputs(workdir, fmi, codes_np, keep)
     report = dict(inputs_s=time.perf_counter() - t0, worlds={})
-    for backend, world in MESH_WORLDS:
+    worlds = [w for w in MESH_WORLDS if w[1] > 1] if tp_only else MESH_WORLDS
+    for backend, world in worlds:
         t1 = time.perf_counter()
-        ranks = mesh_world(workdir, backend, world)
+        ranks = mesh_world(workdir, backend, world, tp_only)
         wall = time.perf_counter() - t1
         report["worlds"][f"{backend}x{world}"] = dict(s=wall, ranks=ranks)
         shared = ("; the ranks share one card, so these walls are no "
                   "scaling number" if world > 1 else "")
+        if world > 1:
+            _print_tp(ranks, len(codes_np), tag)
+        if tp_only:
+            continue
         b = [r["build"] for r in ranks]
         print(f"phase 11 mesh {backend} x {world} ({wall:.1f} s with the "
               f"processes' start): build_index_sharded n={len(codes_np)} "
@@ -4024,7 +4517,52 @@ def phase_mesh(fmi, codes_np, keep, tag, workdir: Path, build_peak_gib):
     return report
 
 
-def mesh_only(bits: int, seed: int = 0) -> dict:
+def _print_tp(ranks, n, tag) -> None:
+    """Phase 11's lines for the tp meshes of a world's ranks."""
+    for key, rec0 in ranks[0]["tp"].items():
+        recs = [r["tp"][key] for r in ranks]
+        print(f"phase 11 tp {key}: shard_index + tp_view of the {n}-base "
+              f"index from its npz on the host, per rank "
+              + ", ".join(f"{r['shard_s']:.3f}" for r in recs)
+              + " s; the card holds " + ", ".join(
+                  f"{r['held']} ({r['held'] / r['whole']:.4f})" for r in recs)
+              + f" bytes of the view (share of the whole index's "
+                f"{rec0['whole']} bytes) {tag}", flush=True)
+        for name in TP_NEEDS:
+            per = [r["paths"][name] for r in recs]
+            shown = TP_NEEDS[name] + ("K5", "K7")
+            print(f"phase 11 tp {key} {name}: equal to the single-device run "
+                  f"on every rank; per rank, first run / second: wall "
+                  + ", ".join(f"{a['s']:.4f} / {w['s']:.4f}" for a, w in per)
+                  + " s, the merge's share " + ", ".join(
+                      f"{a['merge_s'] / a['s']:.3f} / "
+                      f"{w['merge_s'] / w['s']:.3f}" for a, w in per)
+                  + ", launches through the view " + "; ".join(
+                      " ".join(f"{k} {a['launches'][k]}/{w['launches'][k]}"
+                               for k in shown) for a, w in per)
+                  + f"; the ranks share one card {tag}", flush=True)
+        if "small" in rec0:
+            small = rec0["small"]
+            print(f"phase 11 tp {key} kernels against the plain tp path (the "
+                  f"gloo all-reduces) on a 2^{TP_SMALL[0]}-base genome, "
+                  f"{TP_SMALL[1]} reads a kernel: "
+                  + ", ".join(f"{k} {v}" for k, v in small["checked"].items())
+                  + f", tolerance 0, on every rank ({small['s']:.1f} s on "
+                    f"rank 0) {tag}", flush=True)
+        for name, t in rec0.get("times", {}).items():
+            print(f"phase 11 tp {key} time of {name} {t['shape']} on rank 0, "
+                  f"the others at a barrier with their blocks mapped (one "
+                  f"card: no NVLink latency): tp view {t['tp_ms']:.4f} ms, "
+                  f"a view of blocks allocated in this process "
+                  f"{t['local_ms']:.4f} ms, replicated "
+                  f"{t['replicated_ms']:.4f} ms on the same inputs (ratios "
+                  f"{t['tp_ms'] / t['replicated_ms']:.3f}, "
+                  f"{t['local_ms'] / t['replicated_ms']:.3f}; runs "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in t["runs"].items())
+                  + f" ms) {tag}", flush=True)
+
+
+def mesh_only(bits: int, seed: int = 0, tp_only: bool = False) -> dict:
     """Phase 11 alone (``--mesh-only BITS``): a 2^BITS-base random genome
     and its index at sa_rate 4, then phase 4, 5, 8 and 10's inputs at their
     sizes and by their recipes, with their single-device outputs, then the
@@ -4063,7 +4601,7 @@ def mesh_only(bits: int, seed: int = 0) -> dict:
     rr = complemented_reads(rng, codes, 1 << 16)[1]
     keep["rna_seq"] = (rr, rnaseq.rna_seq(fmi, rr, service=QueryService(fmi)))
     return phase_mesh(fmi, codes, keep, tag,
-                      ROOT / "build" / "chip_smoke" / "mesh", peak)
+                      ROOT / "build" / "chip_smoke" / "mesh", peak, tp_only)
 
 
 def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
@@ -4187,7 +4725,13 @@ def main(argv=None) -> int:
                     help="only run phase 11 (the mesh) on a 2^BITS-base "
                          "genome, its inputs and single-device outputs made "
                          "here (mesh_only), and exit")
+    ap.add_argument("--tp-only", type=int, default=0, metavar="BITS",
+                    help="only run phase 11's tp meshes on a 2^BITS-base "
+                         "genome (as --mesh-only, in the gloo world of four "
+                         "ranks alone), and exit")
     ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-tp-only", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--mesh-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-world", type=int, default=1,
                     help=argparse.SUPPRESS)
@@ -4203,9 +4747,10 @@ def main(argv=None) -> int:
         return 1
     if args.mesh_child:
         return mesh_child(Path(args.mesh_child), args.mesh_backend,
-                          args.mesh_world, args.mesh_rank)
-    if args.mesh_only:
-        mesh_only(args.mesh_only, seed=args.seed)
+                          args.mesh_world, args.mesh_rank, args.mesh_tp_only)
+    if args.mesh_only or args.tp_only:
+        mesh_only(args.mesh_only or args.tp_only, seed=args.seed,
+                  tp_only=bool(args.tp_only))
         return 0
     if args.rna_walls:
         rna_walls(args.rna_walls, seed=args.seed)
@@ -4241,6 +4786,13 @@ def main(argv=None) -> int:
           f"K5 seed_rows (by levels expanded) "
           f"{registers_of('seed_rows_kernel')}, K11a (warp, block and tall "
           f"forms) {registers_of('LogForm')} {tag}", flush=True)
+    forms = registers_by_form()
+    require(all(a and len(a) == len(b) for a, b in forms.values()),
+            f"a kernel lacks its tp instantiations: {forms}")
+    print("phase 1 registers by form, replicated / tp (fm::IndexT<kTp>, "
+          "every instantiation): " + ", ".join(
+              f"{k} {a} / {b}" for k, (a, b) in forms.items()) + f" {tag}",
+          flush=True)
     variants, svc_forms = finish_tile_builds(tile_builds)
     print(f"phase 1 the automatons K10 and K9 built apart at tiles "
           f"{sorted(variants)} and K7 in the forms {list(svc_forms)}, to be "
@@ -4387,6 +4939,14 @@ def main(argv=None) -> int:
     ]
     for entry in entries:
         require(entry[3] > 0, f"no main path launched the {entry[0]} kernel")
+    # the tp form's launches: rank 0's runs of phase 11's tp paths over
+    # its views (the kernels without a tp form read no index)
+    tp_runs = [run for m in report["mesh"]["worlds"]["gloox4"]["ranks"][0]
+               ["tp"].values() for runs in m["paths"].values()
+               for run in runs]
+    tp_of = dict(backward_search="K3", unc_sa="K4", locate="locate",
+                 anchor_scan="anchor_scan", seed_rows="K5", isa_window="K6",
+                 service="K7", rnaseq_automaton="K9", align_automaton="K10")
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -4394,6 +4954,8 @@ def main(argv=None) -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": shape or row["shape"],
+        "tp_launches": (sum(r["launches"][tp_of[kernel]] for r in tp_runs)
+                        if kernel in tp_of else None),
     } for kernel, source, replaces, launches, row, shape in entries]}),
         flush=True)
     print(smi, flush=True)

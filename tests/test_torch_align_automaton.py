@@ -30,7 +30,6 @@ from bwt_tpu_torch.ops import dp_wavefront as dpw
 from bwt_tpu_torch.ops import service
 
 from test_torch_automaton import env  # noqa: F401  (the shared fixture)
-from test_torch_parallel import tp_mesh
 
 
 def _mix(g, seed):
@@ -323,8 +322,7 @@ def test_chunk_pipeline_matches(env, mix, jax_results):  # noqa: F811
 def test_engine_selection(env, monkeypatch):  # noqa: F811
     """"auto" takes the device engine on an index with isa_samples and
     reads of at most 32,767 bases, the host engine past that or without
-    isa_samples; "device" raises past it, as in bwt_tpu; a mesh with
-    tp > 1 is not ported."""
+    isa_samples; "device" raises past it, as in bwt_tpu."""
     g, jfmi, tfmi = env
     took = []
     monkeypatch.setattr(taligner, "_align_reads_device",
@@ -341,8 +339,6 @@ def test_engine_selection(env, monkeypatch):  # noqa: F811
         with pytest.raises(ValueError, match="int16 stitch-log width"):
             mod.align_reads(fmi, g, [np.zeros(32768, np.uint8)],
                             engine="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        taligner.align_reads(tfmi, g, ["ACGT"], mesh=tp_mesh())
 
 
 def test_align_read_anchored_matches_bwt_tpu(env, mix):  # noqa: F811

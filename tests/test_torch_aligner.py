@@ -25,7 +25,6 @@ from bwt_tpu_torch.ops import dp_wavefront
 
 from test_models import make_reads
 from test_torch_index import to_port
-from test_torch_parallel import tp_mesh
 
 GLEN = 20000
 
@@ -86,8 +85,8 @@ def test_align_read_matches_bwt_tpu(env):
 
 
 def test_unported_engines_raise(env):
-    """A mesh with tp > 1 and elastic_fallback are not ported and raise;
-    the device engine is, and runs."""
+    """elastic_fallback is not ported and raises; the device engine is,
+    and runs."""
     g, jfmi = env
     tfmi = to_port(jfmi)
     reads = ["ACGT", g[100:180]]
@@ -96,8 +95,6 @@ def test_unported_engines_raise(env):
     assert _norm(got) == _norm(taligner.align_reads(
         tfmi, g, reads, engine="host", with_strand=True))
     assert got[1][0] == 101
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        taligner.align_reads(tfmi, g, ["ACGT"], mesh=tp_mesh())
     cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,
                               elastic_fallback=True)
     with pytest.raises(NotImplementedError):

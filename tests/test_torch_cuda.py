@@ -2,8 +2,9 @@
 DP stitch in all its forms, backward search, SA walk, the fused locate and
 anchor scan, the seed-table build, the inverse-SA window, the fused
 service round, the rna_seq automaton, the aligner automaton and its phase
-B's log stitch and compose) against their plain versions,
-and the port's main paths
+B's log stitch and compose) against their plain versions, the tp form of
+the nine search kernels against their replicated form, and the port's
+main paths
 on the card against the same paths on the CPU (which the other
 test_torch_*.py files hold against bwt_tpu).
 
@@ -33,7 +34,8 @@ from bwt_tpu_torch.ops import dp_wavefront, search, service
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (compose_edge_rows, log_edge_jobs,  # noqa: E402
                         mixed_reads, service_lanes,
-                        stitch_jobs)
+                        stitch_jobs, tp_cases, tp_equal, tp_inputs,
+                        tp_launches, tp_outcome)
 
 pytestmark = pytest.mark.cuda
 
@@ -1070,3 +1072,58 @@ def test_align_automaton_overrun_raises_on_card(card, where):
             dataclasses.replace(fmi, isa_samples=None), svc.bank8, lens,
             live0, 64, anchor_len=12, resolve=False)
     assert automaton.ALIGN_LAUNCHES == launches + 1
+
+
+# --------------------------------------------------------------------------
+# the tp form of the search kernels (fm::IndexT<true>) over views made in
+# this process: K3, K4, locate, anchor_scan, K5, K6, K7, K9 and K10
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("blocks,coord", [(1, 0), (2, 1), (3, 2)],
+                         ids=["1-block", "2-blocks", "3-blocks"])
+def test_tp_kernels_match_replicated(search_env, blocks, coord):
+    """Every kernel over a view of ``blocks`` blocks (a table of one
+    entry; two and three allocations of this process, no IPC) equals the
+    replicated kernel on the whole index, outputs and raises alike; the
+    view's runs launch the kernels (no plain version)."""
+    from bwt_tpu_torch import parallel
+
+    codes, fmi, _ = search_env
+    rng = np.random.default_rng(13)
+    x = tp_inputs(fmi, codes[:fmi.length], rng, fmi.device, 1024)
+    view = parallel.mesh.view_in_process(fmi, blocks, coord)
+    assert view.buckets.shape[0] == -(-fmi.bucket_rows // blocks)
+    try:
+        want = {k: tp_outcome(fn) for k, fn in tp_cases(fmi, x).items()}
+        tp_launches(zero=True)
+        got = {k: tp_outcome(fn) for k, fn in tp_cases(view, x).items()}
+        launched = tp_launches()
+    finally:
+        parallel.release_view(view)
+    for k in want:
+        assert tp_equal(got[k], want[k]), k
+        assert launched[k] > 0, k
+    assert not any(isinstance(v, type) for v in want.values()) or (
+        fmi.length == 500)  # only the repetitive genome raises
+
+
+def test_tp_view_refuses_without_tables(card):
+    """A CPU shard moved to the card has no device tables: the kernels
+    refuse it rather than read its block as the whole table; a released
+    view refuses too."""
+    from bwt_tpu_torch import parallel
+
+    g = np.random.default_rng(3).integers(0, 4, 5000).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(g, device=card)
+    view = parallel.mesh.view_in_process(fmi, 2)
+    pats = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    lens = torch.full((4,), 8, dtype=torch.int32, device=card)
+    search.backward_search(view, pats, lens)
+    no_tables = dataclasses.replace(
+        view, shard=dataclasses.replace(view.shard, tables=None))
+    with pytest.raises(ValueError, match="device tables"):
+        search.backward_search(no_tables, pats, lens)
+    parallel.release_view(view)
+    with pytest.raises(ValueError, match="released"):
+        search.backward_search(view, pats, lens)

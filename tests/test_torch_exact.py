@@ -21,7 +21,6 @@ from bwt_tpu_torch.config import DEFAULT as TDEFAULT
 from bwt_tpu_torch.models import exact as texact
 
 from test_torch_index import to_port
-from test_torch_parallel import tp_mesh
 
 PLANTED = (200, 1500, 3000)  # reads here pair with a reversed copy 300 on
 
@@ -248,8 +247,6 @@ def test_encode_batch_matches_jax(reads):
 
 def test_search_reads_unported_options(genome):
     _, _, tfmi = genome
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        texact.search_reads(tfmi, ["ACGT" * 10], mesh=tp_mesh())
     cfg = dataclasses.replace(TDEFAULT, elastic_fallback=True)
     with pytest.raises(NotImplementedError):
         texact.search_reads(tfmi, ["ACGT" * 10], config=cfg)

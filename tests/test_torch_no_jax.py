@@ -1,6 +1,6 @@
 """bwt_tpu_torch stands alone: importing every one of its modules (the
-multi-device ones of ``bwt_tpu_torch.parallel`` among them), and running
-its CLI, loads neither jax nor bwt_tpu."""
+multi-device ones of ``bwt_tpu_torch.parallel`` among them, the tp view's
+peer blocks too), and running its CLI, loads neither jax nor bwt_tpu."""
 
 import os
 import subprocess
@@ -29,8 +29,10 @@ HOST = ("bwt_tpu_torch.native", "bwt_tpu_torch.native.loader",
         "bwt_tpu_torch.utils.sam", "bwt_tpu_torch.utils.results",
         "bwt_tpu_torch.utils.profiling")
 
-# the multi-device modules, over torch.distributed
+# the multi-device modules, over torch.distributed, and the loader of a tp
+# view's blocks between processes (csrc/peer.cu)
 PARALLEL = ("bwt_tpu_torch.parallel", "bwt_tpu_torch.parallel.mesh",
+            "bwt_tpu_torch.parallel.peer",
             "bwt_tpu_torch.parallel.suffix_dist")
 
 

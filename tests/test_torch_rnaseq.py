@@ -19,7 +19,6 @@ from bwt_tpu_torch.models.batch_exec import QueryService
 from bwt_tpu_torch.ops import service
 
 from test_torch_index import to_port
-from test_torch_parallel import tp_mesh
 
 
 def _mutated(g, rng, n, length=50, nmut=1):
@@ -126,16 +125,12 @@ def test_rna_seq_cutoffs_and_service_reuse(env):
 
 
 def test_unported_engines_raise(env):
-    """The device engine needs isa_samples, as in bwt_tpu; a mesh with
-    tp > 1 and elastic_fallback are not ported."""
+    """The device engine needs isa_samples, as in bwt_tpu;
+    elastic_fallback is not ported."""
     g, _, tfmi, _ = env
     with pytest.raises(ValueError, match="isa_samples"):
         trnaseq.rna_seq(dataclasses.replace(tfmi, isa_samples=None),
                         [g[:50]], engine="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        trnaseq.rna_seq(tfmi, [g[:50]], mesh=tp_mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        trnaseq.rna_seq(tfmi, [g[:50]], engine="device", mesh=tp_mesh())
     with pytest.raises(ValueError, match="unknown engine"):
         trnaseq.rna_seq(tfmi, [g[:50]], engine="tpu")
     with pytest.raises(NotImplementedError, match="elastic_fallback"):
