@@ -2,11 +2,13 @@
 
 ``anchor_scan`` runs the per-read anchor loop of search_reads.c:115-133
 over a whole batch.  On the card it is one launch of
-``csrc/anchor_scan.cu``: one thread per read runs every trip of the hunt
-(a backward search with N resolution over the read's current prefix) and
-then the SA walk of its last anchor.  On the CPU it is the plain version,
-``anchor_scan_plain``: a host loop of lockstep trips over the plain
-backward search, then one plain SA walk.
+``csrc/anchor_scan.cu``: a tile of threads per read runs the hunt's trips
+(backward searches with N resolution over the read's current prefix), the
+consecutive trips that follow misses side by side, and then the SA walk
+of its last anchor.  On the CPU it is the plain version,
+``anchor_scan_plain``: a host loop of rounds of trips over the plain
+backward search (one trip a read a round, or the kernel's tile schedule
+at ``width``), then one plain SA walk.
 
 Semantics note (as in ``bwt_tpu.models.exact``): the reference main never
 converts read ASCII to 2-bit codes before calling ``mms``
@@ -35,37 +37,101 @@ _TORCH_DTYPE = {np.dtype(np.int32): torch.int32,
                 np.dtype(np.int8): torch.int8}
 
 
+# what each lane of anchor_scan_plain's on_round hook did: no candidate;
+# a trip that missed (m < min_anchor), which the round consumes; the
+# trip the round takes (an anchor, or a stuck one); a trip issued after
+# it, discarded
+ANCHOR_EVENTS = ("none", "miss", "taken", "spec")
+EV_NONE, EV_MISS, EV_TAKEN, EV_SPEC = range(4)
+
+
 def anchor_scan_plain(fmi: FMIndex, patterns, lengths, *,
-                      min_anchor: int = MIN_ANCHOR):
+                      min_anchor: int = MIN_ANCHOR, width: int = 1,
+                      on_round=None):
     """The plain PyTorch version of the anchor-scan kernel, on any
-    device: lockstep trips of :func:`search.backward_search_plain`, then
-    one :func:`search.unc_sa_plain` of the last anchors' interval starts.
-    Finished reads ride along as length-1 prefixes, which cost one step.
-    A trip that is an anchor and consumes nothing (matched + skipped <= 0,
-    which needs ``min_anchor <= 0``) would repeat forever: it raises
-    RuntimeError."""
+    device: rounds of trips of :func:`search.backward_search_plain` over
+    the reads still hunting, then one :func:`search.unc_sa_plain` of the
+    last anchors' interval starts.
+
+    ``width`` is the kernel's tile schedule (a power of two up to 32; 1
+    is the lockstep of one trip a round).  In a round a read issues the
+    candidates q = 0 .. width - 1, trip q over the prefix ``len - q``: the
+    trip the sequential loop runs after q misses, issued while
+    ``len - q > min_anchor``.  The round takes the first candidate q*
+    that anchors (``m = matched + skipped >= min_anchor``): ``len`` steps
+    down by the q* misses before it and then by m, as the sequential body
+    does; with none, ``len`` drops by the candidates issued.  The outputs
+    are the same at every width.  ``on_round(plen, res, events)``, when
+    given, sees each round over ``B * width`` lanes, read b's candidate q
+    at lane ``b * width + q`` as the kernel lays its threads out: the
+    prefix lengths (0 where no candidate), the search's fields
+    (:func:`search.backward_search_plain`'s dict, zero where no candidate)
+    and what each candidate did (:data:`ANCHOR_EVENTS`).
+
+    A trip taken that is an anchor and consumes nothing (m <= 0, which
+    needs ``min_anchor <= 0``) would repeat forever: the read stops there,
+    and once every other read is done this raises RuntimeError naming the
+    first such read, as the kernel's flag does."""
+    if width not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"width {width} is not a power of two up to 32")
+    T = width
+    dev = fmi.device
     patterns = torch.as_tensor(patterns, dtype=torch.int32,
-                               device=fmi.device).contiguous()
-    len_b = torch.as_tensor(lengths, dtype=torch.int32, device=fmi.device)
+                               device=dev).contiguous()
+    len_b = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    B = len_b.shape[0]
     nmatch = torch.zeros_like(len_b)
     anchor_sp = torch.zeros_like(len_b)
+    stuck = torch.zeros(B, dtype=torch.bool, device=dev)
+    q = torch.arange(T, dtype=torch.int64, device=dev)
+    reads = torch.arange(B, dtype=torch.int64, device=dev)
     while True:
-        active = len_b > min_anchor
+        active = (len_b > min_anchor) & ~stuck
         if not bool(active.any()):
             break
-        r = search.backward_search_plain(fmi, patterns,
-                                         torch.where(active, len_b, 1),
+        # len - q > min_anchor, exact in int64 (a miss never wraps)
+        room = len_b.to(torch.int64) - min_anchor
+        issued = active[:, None] & (room[:, None] > q)
+        lanes = issued.reshape(-1).nonzero()[:, 0]
+        rows = lanes // T
+        plen = (len_b[rows].to(torch.int64) - lanes % T).to(torch.int32)
+        r = search.backward_search_plain(fmi, patterns[rows], plen,
                                          resolve_n=True)
-        m = r["nmatched"] + r["skips"]
-        got = active & (m >= min_anchor)
-        stuck = got & (m <= 0)
-        if bool(stuck.any()):
-            raise search.no_progress(int(stuck.to(torch.int8).argmax()),
-                                     min_anchor)
-        anchor_sp = torch.where(got, r["sp"], anchor_sp)
+        m_l = r["nmatched"] + r["skips"]
+        m = torch.zeros(B * T, dtype=torch.int32, device=dev)
+        sp = torch.zeros_like(m)
+        m[lanes], sp[lanes] = m_l, r["sp"]
+        stop = torch.zeros(B * T, dtype=torch.bool, device=dev)
+        stop[lanes] = m_l >= min_anchor
+        stop = stop.view(B, T)
+        has = active & stop.any(1)
+        qs = torch.where(has, stop.to(torch.int8).argmax(1),
+                         issued.sum(1))
+        at = reads * T + qs.clamp(max=T - 1)
+        m_q, sp_q = m[at], sp[at]
+        stuck_q = has & (m_q <= 0)
+        got = has & ~stuck_q
+        len_b = torch.where(active, len_b - qs.to(torch.int32), len_b)
+        len_b = torch.where(got, len_b - m_q, len_b)
+        anchor_sp = torch.where(got, sp_q, anchor_sp)
         nmatch = nmatch + got.to(torch.int32)
-        len_b = torch.where(active, torch.where(got, len_b - m, len_b - 1),
-                            len_b)
+        stuck = stuck | stuck_q
+        if on_round is not None:
+            events = torch.where(
+                ~issued, EV_NONE, torch.where(
+                    q[None, :] < qs[:, None], EV_MISS, torch.where(
+                        q[None, :] == qs[:, None], EV_TAKEN, EV_SPEC)))
+            full = {}
+            for name, v in r.items():
+                f = torch.zeros(B * T, dtype=v.dtype, device=dev)
+                f[lanes] = v
+                full[name] = f
+            p = torch.zeros(B * T, dtype=torch.int32, device=dev)
+            p[lanes] = plen
+            on_round(p, full, events.reshape(-1).to(torch.int32))
+    if bool(stuck.any()):
+        raise search.no_progress(int(stuck.to(torch.int8).argmax()),
+                                 min_anchor)
     pos = torch.where(nmatch > 0, search.unc_sa_plain(fmi, anchor_sp), -1)
     return nmatch, pos
 

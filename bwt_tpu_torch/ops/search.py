@@ -693,17 +693,24 @@ def locate(fmi: FMIndex, patterns, lengths, seed_table=None):
 # --------------------------------------------------------------------------
 
 _PATTERN_ELEM = {torch.int32: 4, torch.uint8: 1, torch.int8: -1}
+# the anchor-scan kernel's threads a read (kTileFwd, kTileRev in
+# csrc/anchor_scan.cu): forward, and reversed where a random prefix of
+# min_anchor characters rarely occurs in the genome (4^min_anchor >= 16
+# (length + 1)); a reversed hunt at a shorter min_anchor takes the first
+ANCHOR_TILES = (1, 16)
 
 
 def anchor_scan_kernel(fmi: FMIndex, patterns: torch.Tensor,
                        lengths: torch.Tensor, *, min_anchor: int,
                        reverse: bool = False, out: torch.Tensor | None = None):
-    """Launch ``csrc/anchor_scan.cu``: one thread per read runs the whole
-    anchor hunt (``models.exact.anchor_scan_plain``) and the SA walk of
-    its last anchor.  ``patterns`` (B, L) int32, uint8 or int8 codes and
-    ``lengths`` (B,) int32, contiguous, on the index's device.  Returns
-    ``out``, (2B + 4,) int32: the anchor counts, the positions, and the
-    kernel's flag (pass an all-zero ``out`` to reuse one).  It does not
+    """Launch ``csrc/anchor_scan.cu``: a tile of threads per read
+    (:data:`ANCHOR_TILES`) runs the whole anchor hunt
+    (``models.exact.anchor_scan_plain``), consecutive trips side by side,
+    and the SA walk of its last anchor.  ``patterns`` (B, L) int32, uint8
+    or int8 codes and ``lengths`` (B,) int32, contiguous, on the index's
+    device.  Returns ``out``, (2B + 4,) int32: the anchor counts, the
+    positions, and the kernel's flag (pass an all-zero ``out`` to reuse
+    one).  It does not
     synchronise: the caller reads the flag with the results and hands
     both to :func:`anchor_scan_raise`."""
     global ANCHOR_LAUNCHES

@@ -13,7 +13,8 @@ the card's name and power limit:
      with the registers of each search kernel's replicated and tp
      instantiations, and beside it the automatons K10 and K9 built apart at
      tiles 1 and 8 (not the package's tile, 4), to be timed in phases 7
-     and 10;
+     and 10, and the anchor hunt at tiles 1 to 32 in both directions, to
+     be timed in phase 7;
   2. the DP kernels against their plain PyTorch versions on the card, at
      the stitch shapes the aligner uses and at a taller one (a block a
      job): the fill's vals and ptrs and both outputs of the fused stitch
@@ -70,9 +71,12 @@ the card's name and power limit:
      on the 2^25-base index, each timed by CUDA events beside its bound:
      K3 on 2^16 mixed reads in each initial-state mode and on 2^20 30-mers;
      K4 on 2^20 random rows plus rows 0, endloc and n; the fused
-     anchor_scan on the mixed reads and on one search_reads chunk (32,768
-     x 50 bp, uint8), forward and reversed, also against the unfused loop
-     of K3 launches and a K4 launch that it replaces; the fused locate on
+     anchor_scan on the mixed reads (min_anchor 20 and 12) and on one
+     search_reads chunk (32,768 x 50 bp, uint8), forward and reversed, also
+     against the unfused loop of K3 launches and a K4 launch that it
+     replaces and against its plain version at every tile width, whose
+     rounds give its chains of dependent loads, and beside its builds at
+     each tile; the fused locate on
      the 30-mers and on the mixed reads, plain and seeded; the walk's step
      bound and the hunt's no-progress bound raising on the card; then the
      executor's kernels: K7 on fuzzed rounds of 2^13 lanes mixing all eight
@@ -1557,10 +1561,13 @@ def _anchor_scan_unfused(fmi, pats, lens, min_anchor):
             int(walked.numel()), trips, wall_ms)
 
 
-def phase_search_kernels(fmi, codes_np, rng, table, tag, nmixed=1 << 16,
-                         nlocate=1 << 20, nrows=1 << 20, chunk=1 << 15):
+def phase_search_kernels(fmi, codes_np, rng, table, tag, latency_us,
+                         anchor_forms, nmixed=1 << 16, nlocate=1 << 20,
+                         nrows=1 << 20, chunk=1 << 15):
     """Phase 7: every search kernel against its plain version, bit-equal,
-    each timed beside its bound."""
+    each timed beside its bound; the anchor hunt also at each of
+    ``anchor_forms`` (:func:`finish_tile_builds`), with its chains at
+    every tile width beside the load latency ``latency_us``."""
     import numpy as np
     import torch
 
@@ -1639,14 +1646,17 @@ def phase_search_kernels(fmi, codes_np, rng, table, tag, nmixed=1 << 16,
            "flag read-back included)", f"B={B}", err, ms, plain_ms, bound,
            f", {steps} steps")
 
-    # the fused anchor scan: mixed reads, and one chunk of search_reads
+    # the fused anchor scan: mixed reads, and one chunk of search_reads;
+    # the chains of the plain version's rounds at every tile width, and
+    # the kernel built apart at each tile
     cstarts = rng.integers(0, len(codes_np) - 50, size=chunk)
     creads = torch.from_numpy(
         codes_np[np.add.outer(cstarts, np.arange(50))]).to(dev)
     clens = torch.full((chunk,), 50, dtype=torch.int32, device=dev)
-    for name, p, ln, min_anchor in (
-            ("mixed reads", pats, lens, 20), ("mixed reads", pats, lens, 12),
-            ("a search_reads chunk, uint8", creads, clens, 20)):
+    hunts = {"mixed reads": (pats, lens),
+             "a search_reads chunk, uint8": (creads, clens)}
+    for name, min_anchor in HUNT_CASES:
+        p, ln = hunts[name]
         wide = p.to(torch.int32)
         for reverse in (False, True):
             got = exact.anchor_scan(fmi, p, ln, min_anchor=min_anchor,
@@ -1654,28 +1664,60 @@ def phase_search_kernels(fmi, codes_np, rng, table, tag, nmixed=1 << 16,
             flipped = exact._plain_reverse(wide, ln) if reverse else wide
             want, plain_ms = _event_ms(lambda: exact.anchor_scan_plain(
                 fmi, flipped, ln, min_anchor=min_anchor))
+            chains, by_width = hunt_chains(fmi, flipped, ln, min_anchor)
             unf, steps, wsteps, walks, trips, unf_ms = _anchor_scan_unfused(
                 fmi, flipped, ln, min_anchor)
-            err = max(_max_abs_diff(got, want), _max_abs_diff(got, unf))
+            err = max(_max_abs_diff(got, want), _max_abs_diff(got, unf),
+                      _max_abs_diff(got, by_width))
             case = (f"{name}, {'reversed' if reverse else 'forward'}, "
                     f"min_anchor={min_anchor}")
             require(all(torch.equal(a, b) and torch.equal(a, c)
-                        for a, b, c in zip(got, want, unf)),
+                        and torch.equal(a, d)
+                        for a, b, c, d in zip(got, want, unf, by_width)),
                     f"anchor_scan differs from its plain version or from "
                     f"the unfused loop ({case}): max |d| {err}")
             B = p.shape[0]
             bound = bound_of(p.numel() * p.element_size() + (4 + 8) * B
                              + _index_bytes(fmi, steps, wsteps, walks),
                              SEARCH_STEP_OPS * steps + WALK_STEP_OPS * wsteps)
-            ms = cuda_ms(lambda: search.anchor_scan_kernel(
-                fmi, p, ln, min_anchor=min_anchor, reverse=reverse), 20)
+
+            def run():
+                return search.anchor_scan_kernel(
+                    fmi, p, ln, min_anchor=min_anchor, reverse=reverse)
+
+            # the wrapper's host time is near the kernel's: time it with
+            # the host ahead, and as earlier PRs did, at the host's pace
+            ms = cuda_ms(run, 20, ahead=True)
+            paced = cuda_ms(run, 20)
+            forms = {}
+            for form, (lib, _) in anchor_forms.items():
+                with automaton_tile(lib, ANCHOR_LAUNCHERS):
+                    alt = exact.anchor_scan(fmi, p, ln, min_anchor=min_anchor,
+                                            reverse=reverse)
+                    err_f = _max_abs_diff(alt, want)
+                    require(all(torch.equal(a, b) for a, b in zip(alt, want)),
+                            f"anchor_scan built at {form} differs from its "
+                            f"plain version ({case}): max |d| {err_f}")
+                    forms[form] = cuda_ms(run, 20, ahead=True)
+                err = max(err, err_f)
             report("anchor_scan", case, f"B={B} L={p.shape[1]}", err, ms,
                    plain_ms, bound,
                    f", {steps} search and {wsteps} walk steps; the unfused "
                    f"loop of {trips} K3 launches and a K4 launch, its step "
-                   f"count included: {unf_ms:.4f} ms of wall")
+                   f"count included: {unf_ms:.4f} ms of wall; at the "
+                   f"host's pace {paced:.4f} ms; built apart (the host "
+                   f"ahead): " + ", ".join(
+                       f"{k} {v:.4f}" for k, v in forms.items())
+                   + " ms; chains (read mean / longest, warp mean / "
+                   "longest, steps issued; with the quit) " + "; ".join(
+                       f"T = {T}: {c['read'][0]:.1f} / {c['read'][1]}, "
+                       f"{c['warp'][0]:.1f} / {c['warp'][1]} "
+                       f"({c['warp'][1] * latency_us / 1e3:.4f} ms at the "
+                       f"load latency), {c['issued']}; {c['read_quit'][1]}, "
+                       f"{c['issued_quit']}" for T, c in chains.items()))
             rows[-1].update(unfused_wall_ms=unf_ms, trips=trips,
-                            reverse=reverse)
+                            reverse=reverse, paced_ms=paced, forms=forms,
+                            chains=chains)
 
     # the fused locate: the 30-mers, and the mixed reads whose walk starts
     # on a real row (the others raise, in both versions)
@@ -2326,6 +2368,183 @@ def cpu_chains(n=4096, seed=0, widths=(1, 2, 4, 8), bits=25):
 
 
 # --------------------------------------------------------------------------
+# The anchor hunt's tile (csrc/anchor_scan.cu), counted from the plain
+# version's rounds before any kernel: a read's chain of dependent row loads
+# and the steps its tile issues, at each width.
+# --------------------------------------------------------------------------
+
+ANCHOR_WIDTHS = (1, 2, 4, 8, 16, 32)
+_NEVER = 1 << 40
+
+
+class HuntChain:
+    """An ``on_round`` hook of ``exact.anchor_scan_plain`` at ``width``:
+    per read, the sum over its rounds of its longest candidate's search
+    steps (the candidates of a round run side by side, a step a dependent
+    row load), and the same where a candidate leaves off once a lower one
+    has matched ``min_anchor`` characters (the quit: it stops at the
+    earliest step at which a lower candidate that anchors got there); per
+    warp of the kernel (read b's candidate q at thread b * width + q), the
+    sum over the rounds of its longest thread (the warp in lockstep); the
+    steps issued over all candidates, discarded ones included, without
+    and with the quit; and the last anchor's row, whose walk
+    :meth:`summary` adds."""
+
+    def __init__(self, nreads: int, *, width: int, min_anchor: int):
+        import torch
+
+        self.width, self.min_anchor = width, min_anchor
+        self.loads = torch.zeros(nreads, dtype=torch.int64)
+        self.quit_loads = torch.zeros(nreads, dtype=torch.int64)
+        self.lockstep = torch.zeros(-(-nreads * width // 32),
+                                    dtype=torch.int64)
+        self.issued = self.quit_issued = self.rounds = 0
+        self.sp = torch.zeros(nreads, dtype=torch.int32)
+        self.got = torch.zeros(nreads, dtype=torch.bool)
+
+    def __call__(self, plen, res, events):
+        import torch
+
+        from bwt_tpu_torch.models import exact
+
+        T = self.width
+        res = {k: v.cpu() for k, v in res.items()}
+        ev = events.cpu().view(-1, T)
+        n0 = res["nmatched"] >= 1
+        steps = _search_steps(res, 1, n0).view(-1, T)
+        m = (res["nmatched"] + res["skips"]).view(-1, T)
+        stops = (ev != exact.EV_NONE) & (m >= self.min_anchor)
+        reach = (self.min_anchor - n0.to(torch.int64).view(-1, T)
+                 - res["skips"].view(-1, T)).clamp(min=0)
+        reach = torch.where(stops, reach, _NEVER).cummin(1).values
+        quit_at = torch.cat([torch.full_like(reach[:, :1], _NEVER),
+                             reach[:, :-1]], 1)
+        cut = torch.minimum(steps, quit_at)
+        self.loads += steps.amax(1)
+        self.quit_loads += cut.amax(1)
+        flat = torch.zeros(self.lockstep.shape[0] * 32, dtype=torch.int64)
+        flat[:steps.numel()] = steps.reshape(-1)
+        self.lockstep += flat.view(-1, 32).amax(1)
+        self.issued += int(steps.sum())
+        self.quit_issued += int(cut.sum())
+        taken = ev == exact.EV_TAKEN
+        has = taken.any(1)
+        sp = res["sp"].view(-1, T).gather(
+            1, taken.to(torch.int8).argmax(1, keepdim=True).long())[:, 0]
+        self.sp = torch.where(has, sp, self.sp)
+        self.got |= has
+        self.rounds += 1
+
+    def summary(self, fmi) -> dict:
+        """Per read (search and walk steps), mean and longest, without and
+        with the quit; per warp, the longest read's chain and the
+        lockstep sum with the longest walk, mean and
+        longest; the rounds; the steps issued."""
+        import torch
+
+        walk = torch.where(self.got, walk_steps(fmi, self.sp.to(fmi.device))
+                           .cpu(), 0)
+        chain, quit = self.loads + walk, self.quit_loads + walk
+        per = 32 // self.width
+        pad = -len(chain) % per
+        warp = torch.cat([chain, chain.new_zeros(pad)]).view(-1, per)
+        wwalk = torch.cat([walk, walk.new_zeros(pad)]).view(-1, per)
+        lock = self.lockstep + wwalk.amax(1)
+
+        def mm(x):
+            return [float(x.float().mean()), int(x.max())] if len(x) else [0, 0]
+
+        return dict(width=self.width, rounds=self.rounds, read=mm(chain),
+                    read_quit=mm(quit), warp=mm(warp.amax(1)),
+                    lockstep=mm(lock), walk=int(walk.sum()),
+                    issued=self.issued + int(walk.sum()),
+                    issued_quit=self.quit_issued + int(walk.sum()))
+
+
+def hunt_chains(fmi, pats, lens, min_anchor: int, widths=ANCHOR_WIDTHS):
+    """The anchor hunt's chains (:class:`HuntChain`) of the reads ``pats``
+    (as hunted: reversed already where the kernel flips them) at each of
+    ``widths``, from the plain version's rounds on the index's device.
+    Every width's outputs must equal the first's.  Returns ({width:
+    summary}, the first width's outputs)."""
+    import torch
+
+    from bwt_tpu_torch.models import exact
+
+    out, first = {}, None
+    for T in widths:
+        c = HuntChain(lens.shape[0], width=T, min_anchor=min_anchor)
+        got = exact.anchor_scan_plain(fmi, pats, lens, min_anchor=min_anchor,
+                                      width=T, on_round=c)
+        if first is None:
+            first = got
+        require(all(torch.equal(a, b) for a, b in zip(got, first)),
+                f"the plain anchor scan at width {T} differs from width "
+                f"{widths[0]}")
+        out[T] = c.summary(fmi)
+    return out, first
+
+
+def hunt_inputs(rng, codes, nmixed=1 << 16, chunk=1 << 15):
+    """Phase 7's anchor-hunt reads, as numpy: (name, codes, lengths) of
+    the mixed reads (L = 100, N runs, ragged) and of one search_reads
+    chunk (``chunk`` 50-bp genome substrings, uint8)."""
+    import numpy as np
+
+    pats, lens = mixed_reads(rng, codes, nmixed)
+    starts = rng.integers(0, len(codes) - 50, size=chunk)
+    return [("mixed reads", pats, lens),
+            ("a search_reads chunk, uint8",
+             codes[np.add.outer(starts, np.arange(50))],
+             np.full((chunk,), 50, np.int32))]
+
+
+HUNT_CASES = (("mixed reads", 20), ("mixed reads", 12),
+              ("a search_reads chunk, uint8", 20))
+
+
+def anchor_chains(seed=0, bits=25, nmixed=1 << 16, chunk=1 << 15,
+                  widths=ANCHOR_WIDTHS, latency_us=0.4129):
+    """The anchor hunt's chains counted on the CPU, before any kernel: a
+    2^``bits``-base genome (sa_rate 4) from ``seed``, phase 7's mixed reads
+    (min_anchor 20 and 12) and search_reads chunk (20), forward and
+    reversed, at each tile width (:func:`hunt_chains`).  Prints one JSON
+    line a case and direction, with each width's chain beside the time it
+    takes at ``latency_us`` a load (PERF.md's K3 measure).
+
+        python3 -c 'import chip_smoke; chip_smoke.anchor_chains()'
+
+    About 25 minutes on eight CPU threads, most of it the mixed reads'
+    forward hunts; ``nmixed`` / ``chunk`` cut it."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import exact
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    t0 = time.perf_counter()
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cpu")
+    print(f"index on the CPU in {time.perf_counter() - t0:.1f} s", flush=True)
+    inputs = {name: (torch.from_numpy(p).to(torch.int32),
+                     torch.from_numpy(ln))
+              for name, p, ln in hunt_inputs(rng, codes, nmixed, chunk)}
+    for name, min_anchor in HUNT_CASES:
+        p, ln = inputs[name]
+        for reverse in (False, True):
+            t0 = time.perf_counter()
+            flipped = exact._plain_reverse(p, ln) if reverse else p
+            chains, _ = hunt_chains(fmi, flipped, ln, min_anchor, widths)
+            for c in chains.values():
+                c["warp_ms"] = c["warp"][1] * latency_us / 1e3
+            print(json.dumps(dict(
+                case=name, min_anchor=min_anchor, reverse=reverse,
+                n=int(ln.shape[0]), chains=chains,
+                s=round(time.perf_counter() - t0, 1))), flush=True)
+
+
+# --------------------------------------------------------------------------
 # Part A of the K5 and K11a redesigns: the work each schedule issues, counted
 # from the plain versions before any kernel.
 #
@@ -2863,6 +3082,22 @@ def registers_of(fragment: str, report: str | None = None) -> list[int]:
     return sorted(int(r) for name, r in found if fragment in name)
 
 
+def anchor_registers(report: str | None = None) -> dict:
+    """The registers of each instantiation of the anchor hunt's kernel,
+    keyed "tile T, int32 / uint8 / int8, replicated / tp", from a compiler
+    report (phase 1's by default)."""
+    from bwt_tpu_torch.ops import _kernels
+
+    found = re.findall(r"Compiling entry function '\S*anchor_scan_kernelILi"
+                       r"(\d+)E([iha])Lb([01])E\S*' for 'sm_90a'\n"
+                       r"(?:.*\n){0,3}?.*Used (\d+) registers",
+                       _kernels.LAST_REPORT if report is None else report)
+    code = {"i": "int32", "h": "uint8", "a": "int8"}
+    return {f"tile {T}, {code[c]}, {('replicated', 'tp')[int(tp)]}": int(r)
+            for T, c, tp, r in sorted(found, key=lambda f: (int(f[0]),
+                                                             f[2], f[1]))}
+
+
 # the kernels with a tp form, by the name their entry function carries
 TP_ENTRIES = (("K3", "backward_search_kernel"), ("K4", "unc_sa_kernel"),
               ("locate", "locate_kernel"), ("anchor_scan", "anchor_scan_kernel"),
@@ -2892,8 +3127,9 @@ def registers_by_form(report: str | None = None) -> dict:
 
 
 # The automatons K10 and K9 at other tiles than the package's
-# (svc::kAutomatonTile), and the service kernel K7 with each of its choices
-# turned off, built apart to be timed beside the package: the package builds
+# (svc::kAutomatonTile), the service kernel K7 with each of its choices
+# turned off, and the anchor hunt at every tile in both directions, built
+# apart to be timed beside the package: the package builds
 # one form of each, and these builds are never on its path.
 AUTOMATON_SOURCES = ("align_automaton.cu", "rnaseq_automaton.cu")
 AUTOMATON_LAUNCHERS = ("align_automaton_launch", "rnaseq_automaton_launch")
@@ -2904,27 +3140,37 @@ SERVICE_FORMS = {
     "tile 1": "-DBWT_SERVICE_TILE=1",        # a thread a lane on every round
     "tile 4": "-DBWT_SERVICE_TILE=4",        # four threads a lane on every one
 }
+ANCHOR_LAUNCHERS = ("anchor_scan_launch",)
+# name: the defines of csrc/anchor_scan.cu that make the form
+ANCHOR_FORMS = {f"tile {T}": (f"-DBWT_ANCHOR_TILE_FWD={T}",
+                              f"-DBWT_ANCHOR_TILE_REV={T}")
+                for T in ANCHOR_WIDTHS}
 
 
-def start_tile_builds(tiles=OTHER_TILES, forms=SERVICE_FORMS) -> dict:
+def start_tile_builds(tiles=OTHER_TILES, forms=SERVICE_FORMS,
+                      anchor_forms=ANCHOR_FORMS) -> dict:
     """Start one ``nvcc`` a build, together: the two automatons' sources at
-    each tile (``-DBWT_AUTOMATON_TILE``, keyed by the tile) and the service
-    kernel's source in each form (keyed by its name), each into a library
-    of its launchers under ``build/tile_variants/``."""
+    each tile (``-DBWT_AUTOMATON_TILE``, keyed by the tile), the service
+    kernel's source in each form (keyed by its name) and the anchor hunt's
+    in each of ``anchor_forms`` (keyed by ("anchor", its name)), each into
+    a library of its launchers under ``build/tile_variants/``."""
     from bwt_tpu_torch.ops import _kernels
 
     out_dir = _kernels.BUILD_DIR.parent / "tile_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels._nvcc()
     stem = _kernels.library_path().stem
-    specs = {T: (f"tile{T}", f"-DBWT_AUTOMATON_TILE={T}", AUTOMATON_SOURCES)
-             for T in tiles}
-    specs.update({name: ("svc_" + re.sub(r"\W", "", name), define,
+    specs = {T: (f"tile{T}", (f"-DBWT_AUTOMATON_TILE={T}",),
+                 AUTOMATON_SOURCES) for T in tiles}
+    specs.update({name: ("svc_" + re.sub(r"\W", "", name), (define,),
                          ("service.cu",)) for name, define in forms.items()})
+    specs.update({("anchor", name): ("anchor_" + re.sub(r"\W", "", name),
+                                     defines, ("anchor_scan.cu",))
+                  for name, defines in anchor_forms.items()})
     started = {}
-    for key, (suffix, define, sources) in specs.items():
+    for key, (suffix, defines, sources) in specs.items():
         path = out_dir / f"{stem}_{suffix}.so"
-        cmd = [nvcc, *_kernels.NVCC_FLAGS, define, "-Xptxas", "-v",
+        cmd = [nvcc, *_kernels.NVCC_FLAGS, *defines, "-Xptxas", "-v",
                "-shared", "-o", str(path),
                *(str(_kernels.CSRC / f) for f in sources)]
         started[key] = (path, cmd, subprocess.Popen(
@@ -2932,16 +3178,16 @@ def start_tile_builds(tiles=OTHER_TILES, forms=SERVICE_FORMS) -> dict:
     return started
 
 
-def finish_tile_builds(started) -> tuple[dict, dict]:
+def finish_tile_builds(started) -> tuple[dict, dict, dict]:
     """Wait for :func:`start_tile_builds`: ({tile: (library, the compiler's
-    report)}, {service form: (library, report)}); a failed build, a stack
-    frame or a spill fails the run."""
+    report)}, {service form: (library, report)}, {anchor form: (library,
+    report)}); a failed build, a stack frame or a spill fails the run."""
     import ctypes
 
     from bwt_tpu_torch.ops import _kernels
 
     base = _kernels.library()
-    tiles, forms = {}, {}
+    tiles, forms, anchors = {}, {}, {}
     for key, (path, cmd, proc) in started.items():
         so, se = proc.communicate()
         require(proc.returncode == 0, f"nvcc failed on the build {key!r}:\n"
@@ -2951,14 +3197,16 @@ def finish_tile_builds(started) -> tuple[dict, dict]:
         require(frames and all(f == ("0", "0") for f in frames),
                 f"the build {key!r} keeps values in local memory: {frames}")
         lib = ctypes.CDLL(str(path))
-        launchers = (SERVICE_LAUNCHERS if isinstance(key, str)
-                     else AUTOMATON_LAUNCHERS)
+        kind, launchers = (
+            (anchors, ANCHOR_LAUNCHERS) if isinstance(key, tuple) else
+            (forms, SERVICE_LAUNCHERS) if isinstance(key, str) else
+            (tiles, AUTOMATON_LAUNCHERS))
         for name in launchers:
             fn = getattr(lib, name)
             fn.argtypes = getattr(base, name).argtypes
             fn.restype = ctypes.c_int
-        (forms if isinstance(key, str) else tiles)[key] = (lib, se)
-    return tiles, forms
+        kind[key[1] if isinstance(key, tuple) else key] = (lib, se)
+    return tiles, forms, anchors
 
 
 @contextlib.contextmanager
@@ -4758,7 +5006,7 @@ def main(argv=None) -> int:
     if args.rna_profile:
         rna_profile(args.rna_profile, seed=args.seed, trace=args.out)
         return 0
-    from bwt_tpu_torch.ops import _kernels
+    from bwt_tpu_torch.ops import _kernels, search
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -4793,7 +5041,18 @@ def main(argv=None) -> int:
           "every instantiation): " + ", ".join(
               f"{k} {a} / {b}" for k, (a, b) in forms.items()) + f" {tag}",
           flush=True)
-    variants, svc_forms = finish_tile_builds(tile_builds)
+    anchor_regs = anchor_registers()
+    require(len(anchor_regs) == 6 * len(set(search.ANCHOR_TILES)),
+            f"the anchor hunt lacks an instantiation: {anchor_regs}")
+    print(f"phase 1 anchor_scan's instantiations (tiles forward / reversed "
+          f"{search.ANCHOR_TILES}): registers {anchor_regs} {tag}",
+          flush=True)
+    variants, svc_forms, anchor_forms = finish_tile_builds(tile_builds)
+    print("phase 1 anchor_scan built apart, registers by form (int32, "
+          "uint8, int8; replicated then tp): " + "; ".join(
+              f"{name}: {sorted(anchor_registers(r).values())}"
+              for name, (_, r) in anchor_forms.items()) + f" {tag}",
+          flush=True)
     print(f"phase 1 the automatons K10 and K9 built apart at tiles "
           f"{sorted(variants)} and K7 in the forms {list(svc_forms)}, to be "
           f"timed beside the package's, in "
@@ -4822,8 +5081,9 @@ def main(argv=None) -> int:
         keep=keep)
     report["nw_batch"] = phase_nw_batch(codes, rng, NW_PAIRS, tag)
     report["cli"] = phase_cli(rng, ROOT / "build" / "chip_smoke", tag)
-    report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag)
     latency_us = load_latency(fmi, codes, tag)
+    report["kernels"] = phase_search_kernels(fmi, codes, rng, table, tag,
+                                             latency_us, anchor_forms)
     report["kernels"] += phase_service_kernels(fmi, codes, rng, table,
                                                recorded, tag, svc_forms,
                                                latency_us)

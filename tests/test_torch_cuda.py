@@ -363,39 +363,67 @@ def _outcome(fn):
     return [t.cpu() for t in out]
 
 
-@pytest.mark.parametrize("min_anchor", [20, 12])
+_HUNT_WANT = {}  # the plain version's outcome a case: every view shares it
+
+
+def _hunt_reads(codes, fmi, shape):
+    """The anchor hunt's reads for ``shape``, the same in every case."""
+    rng = np.random.default_rng(2051 if shape == "mixed" else 4099)
+    if shape == "mixed":
+        pats, lens = mixed_reads(rng, codes, 2051, L=100)
+    else:
+        starts = rng.integers(0, fmi.length - 50, size=4099)
+        pats = codes[np.add.outer(starts, np.arange(50))]
+        lens = np.full((4099,), 50, np.int32)
+    return torch.from_numpy(pats).cuda(), torch.from_numpy(lens).cuda()
+
+
+@pytest.mark.parametrize("blocks", [0, 1, 2, 3],
+                         ids=["replicated", "tp-1", "tp-2", "tp-3"])
+@pytest.mark.parametrize("shape", ["mixed", "chunk"])
+@pytest.mark.parametrize("min_anchor", [20, 12, 8])
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
-def test_anchor_scan_kernel_matches_plain(search_env, reverse, min_anchor):
-    """The fused anchor scan bit-equal to its plain version on mixed reads,
-    both directions, for int32 and one-byte codes."""
-    codes, fmi, rng = search_env
-    pats_np, lens_np = mixed_reads(rng, codes, 2051, L=100)
-    pats = torch.from_numpy(pats_np).cuda()
-    lens = torch.from_numpy(lens_np).cuda()
-    launches = search.ANCHOR_LAUNCHES, search.BS_LAUNCHES, search.UNC_LAUNCHES
-    got = _outcome(lambda: exact.anchor_scan(fmi, pats, lens, reverse=reverse,
-                                             min_anchor=min_anchor))
-    assert (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
-            search.UNC_LAUNCHES) == (launches[0] + 1, *launches[1:])
-    flipped = exact._plain_reverse(pats, lens) if reverse else pats
-    want = _outcome(lambda: exact.anchor_scan_plain(fmi, flipped, lens,
-                                                    min_anchor=min_anchor))
-    assert isinstance(want, list)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert (want[0] > 0).any() and (want[0] == 0).any()
-    # one byte a code: the odd codes read as a cast reads them
-    for dt in (torch.int8, torch.uint8):
-        narrow = pats.to(dt)
-        got = _outcome(lambda: exact.anchor_scan(
-            fmi, narrow, lens, reverse=reverse, min_anchor=min_anchor))
-        wide = narrow.to(torch.int32)
-        flipped = exact._plain_reverse(wide, lens) if reverse else wide
-        want = _outcome(lambda: exact.anchor_scan_plain(
-            fmi, flipped, lens, min_anchor=min_anchor))
-        assert isinstance(want, list)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+def test_anchor_scan_kernel_matches_plain(search_env, reverse, min_anchor,
+                                          shape, blocks):
+    """The fused anchor scan bit-equal to its plain version, both
+    directions, for int32 and one-byte codes: on mixed reads (L = 100)
+    and at a search_reads chunk's shape (50-bp genome substrings, uint8),
+    over the whole index and over tp views of 1, 2 and 3 blocks
+    (allocations of this process), each launch at its tile (on the
+    30,000-base genome a reversed hunt at min_anchor 8 keeps a thread a
+    read, at 12 and 20 it takes the tile of 16)."""
+    from bwt_tpu_torch import parallel
+
+    codes, fmi, _ = search_env
+    pats, lens = _hunt_reads(codes, fmi, shape)
+    view = (parallel.mesh.view_in_process(fmi, blocks, blocks - 1) if blocks
+            else fmi)
+    try:
+        # one byte a code: the odd codes read as a cast reads them
+        for dt in (torch.int32, torch.int8, torch.uint8):
+            narrow = pats.to(dt)
+            launches = (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
+                        search.UNC_LAUNCHES)
+            got = _outcome(lambda: exact.anchor_scan(
+                view, narrow, lens, reverse=reverse, min_anchor=min_anchor))
+            assert (search.ANCHOR_LAUNCHES, search.BS_LAUNCHES,
+                    search.UNC_LAUNCHES) == (launches[0] + 1, *launches[1:])
+            key = (fmi.length, shape, min_anchor, reverse, dt)
+            if key not in _HUNT_WANT:
+                wide = narrow.to(torch.int32)
+                flipped = (exact._plain_reverse(wide, lens) if reverse
+                           else wide)
+                _HUNT_WANT[key] = _outcome(lambda: exact.anchor_scan_plain(
+                    fmi, flipped, lens, min_anchor=min_anchor))
+            want = _HUNT_WANT[key]
+            assert isinstance(want, list)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            if shape == "mixed" and dt == torch.int32:
+                assert (want[0] > 0).any() and (want[0] == 0).any()
+    finally:
+        if blocks:
+            parallel.release_view(view)
 
 
 @pytest.mark.parametrize("seeded", [False, True], ids=["plain", "seeded"])

@@ -6,6 +6,7 @@ uint8 code array, format_ref_output byte for byte, and the port's own
 bounds where bwt_tpu's hunt never ends."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from bwt_tpu.models import exact as jexact
 import bwt_tpu_torch
 from bwt_tpu_torch.config import DEFAULT as TDEFAULT
 from bwt_tpu_torch.models import exact as texact
+from bwt_tpu_torch.ops import search as tsearch
 
 from test_torch_index import to_port
 
@@ -76,6 +78,46 @@ def test_anchor_scan_matches_jax(seed, min_anchor):
     assert (np.asarray(want[0]) > 0).any() and (np.asarray(want[0]) == 0).any()
 
 
+WIDTHS = (1, 2, 4, 8, 16, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _hunt_case(seed, min_anchor, reverse):
+    """One anchor_scan case of test_anchor_scan_matches_jax (forward) or
+    test_anchor_scan_reverse_matches_jax (the host-reversed reads), with
+    bwt_tpu's result: (port index, patterns as hunted, lengths, want)."""
+    rng = np.random.default_rng(seed)
+    codes = jcodec.encode_genome(jcodec.random_genome(600, seed=seed))
+    jfmi = bwt_tpu.build_index(codes)
+    pat = _anchor_reads(rng, codes)
+    lens = np.full((len(pat),), 40, np.int32)
+    if reverse:
+        pat = _host_reverse(pat, lens)
+    lens[::5] = rng.integers(0 if reverse else 1, 41, size=len(lens[::5]))
+    pat = np.where(np.arange(40)[None, :] < lens[:, None], pat, 0)
+    if reverse:
+        pat = _host_reverse(pat, lens)
+    want = jexact.anchor_scan(jfmi, pat, lens, min_anchor=min_anchor)
+    return to_port(jfmi), pat, lens, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("seed,min_anchor", [(0, 20), (1, 20), (2, 12)])
+def test_anchor_scan_plain_width_matches_jax(seed, min_anchor, reverse,
+                                             width):
+    """The kernel's tile schedule in the plain version: rounds of
+    ``width`` candidate trips a read give bwt_tpu's anchor counts and
+    positions at every width, on the anchor-loop reads and their
+    plain-reversed copies, with ragged prefixes."""
+    tfmi, pat, lens, want = _hunt_case(seed, min_anchor, reverse)
+    got = texact.anchor_scan_plain(tfmi, pat, lens, min_anchor=min_anchor,
+                                   width=width)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), b)
+    assert (want[0] > 0).any() and (want[0] == 0).any()
+
+
 def _host_reverse(pat, lens):
     """bwt_tpu.models.exact.search_reads' flip: pattern[:len] reversed."""
     rev = np.zeros_like(pat)
@@ -111,17 +153,23 @@ def test_anchor_scan_reverse_matches_jax(seed, min_anchor):
         _host_reverse(pat, lens))
 
 
-def test_anchor_scan_min_anchor_zero_matches_jax():
+@pytest.mark.parametrize("width", (None,) + WIDTHS)
+def test_anchor_scan_min_anchor_zero_matches_jax(width):
     """min_anchor = 0 ends when every trip consumes something: reads over
     the genome's own symbols, N's included (an all-N anchor takes the
-    prefix length below zero)."""
+    prefix length below zero, where the candidates stop); through the
+    wrapper (``width`` None) and the plain version at every width."""
     codes = np.zeros(64, np.uint8)
     jfmi = bwt_tpu.build_index(codes)
     pat = np.array([[0, 0, 0, 0, 0, 0], [0, 5, 0, 5, 5, 0], [5, 5, 5, 5, 5, 5],
                     [0, 0, 5, 5, 0, 0]], np.int32)
     lens = np.array([6, 5, 6, 0], np.int32)
     want = jexact.anchor_scan(jfmi, pat, lens, min_anchor=0)
-    got = texact.anchor_scan(to_port(jfmi), pat, lens, min_anchor=0)
+    if width is None:
+        got = texact.anchor_scan(to_port(jfmi), pat, lens, min_anchor=0)
+    else:
+        got = texact.anchor_scan_plain(to_port(jfmi), pat, lens,
+                                       min_anchor=0, width=width)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), np.asarray(b))
 
@@ -147,6 +195,76 @@ def test_anchor_scan_walk_past_the_sa_raises():
     pat = np.array([[1, 5, 5, 5]], np.int32)
     with pytest.raises(RuntimeError, match="row 65"):
         texact.anchor_scan(fmi, pat, [4], min_anchor=3)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_anchor_scan_plain_raises_at_every_width(width):
+    """Both bounds at every width, naming what the kernel's flag names:
+    the first read that is stuck, whichever round it sticks in (read 0
+    anchors 'AA' first and sticks on 'AC' a trip later than read 2), and
+    the row of a walk past the suffix array."""
+    fmi = bwt_tpu_torch.build_index(np.zeros(64, np.uint8), device="cpu")
+    pat = np.array([[0, 1, 0, 0], [0, 0, 0, 0], [0, 1, 0, 0]], np.int32)
+    with pytest.raises(RuntimeError, match="read 0 .* never end"):
+        texact.anchor_scan_plain(fmi, pat, [4, 4, 2], min_anchor=0,
+                                 width=width)
+    with pytest.raises(RuntimeError, match="read 1 .* never end"):
+        texact.anchor_scan_plain(fmi, pat[1:], [4, 2], min_anchor=0,
+                                 width=width)
+    with pytest.raises(RuntimeError, match="row 65"):
+        texact.anchor_scan_plain(fmi, np.array([[0, 0, 0, 0], [1, 5, 5, 5]],
+                                               np.int32), [4, 4],
+                                 min_anchor=3, width=width)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_anchor_scan_on_round_sees_the_kernels_layout(genome, width):
+    """on_round sees read b's candidate q at lane b * width + q: trip q
+    over the prefix len - q, issued while len - q > min_anchor, each
+    lane's fields those of the search of that prefix alone, and its event
+    the candidate's part in the round (misses, then the trip taken, then
+    the discarded ones)."""
+    codes, _, tfmi = genome
+    rng = np.random.default_rng(3)
+    pat = codes[np.add.outer(rng.integers(0, 4900, 6), np.arange(40))]
+    pat = pat.astype(np.int32)
+    pat[1] = rng.integers(0, 4, 40)         # junk: every trip misses
+    pat[2, 30] ^= 3                         # anchors after ten misses
+    lens = np.array([40, 40, 40, 23, 21, 12], np.int32)
+    seen = []
+    texact.anchor_scan_plain(tfmi, pat, lens, min_anchor=20, width=width,
+                             on_round=lambda *a: seen.append(a))
+    ev = texact.ANCHOR_EVENTS
+    assert seen and ev == ("none", "miss", "taken", "spec")
+    live = lens.copy()
+    for plen, res, events in seen:
+        assert plen.shape == events.shape == (len(lens) * width,)
+        P, E = plen.view(-1, width), events.view(-1, width)
+        for b in range(len(lens)):
+            n = min(width, max(int(live[b]) - 20, 0))
+            assert (E[b, n:] == texact.EV_NONE).all()
+            assert (P[b, n:] == 0).all()
+            if not n:
+                continue
+            assert P[b, :n].tolist() == [int(live[b]) - q for q in range(n)]
+            kinds = E[b, :n].tolist()
+            k = n
+            if texact.EV_TAKEN in kinds:
+                k = kinds.index(texact.EV_TAKEN)
+            assert kinds == ([texact.EV_MISS] * k + [texact.EV_TAKEN] * (k < n)
+                             + [texact.EV_SPEC] * (n - k - 1))
+            for q in range(n):
+                one = tsearch.backward_search_plain(
+                    tfmi, pat[b:b + 1], [int(P[b, q])], resolve_n=True)
+                for f, v in one.items():
+                    assert int(res[f][b * width + q]) == int(v[0]), f
+            m = int(res["nmatched"][b * width + k] + res["skips"][b * width
+                                                                + k])
+            live[b] -= k + (m if k < n else 0)
+    assert (live <= 20).all()
+    first = seen[0][2].view(-1, width)
+    assert first[0, 0] == texact.EV_TAKEN and first[1, 0] == texact.EV_MISS
+    assert (first[5] == texact.EV_NONE).all()
 
 
 def test_search_reads_uint8_code_array_matches_jax(genome):
