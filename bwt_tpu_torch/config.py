@@ -40,8 +40,8 @@ class Config:
     spec_depth: int = 1        # anchor-hunt retries issued per round
     rnaseq_spec_depth: int = 24
     isa_spec_depth: int = 1    # curgap hypotheses issued per round
-    elastic_fallback: bool = False  # not supported by this package:
-    # the drivers raise NotImplementedError when it is set
+    elastic_fallback: bool = False  # opt-in device-failure recovery: the
+    # drivers and build_index re-run on the CPU (ops._kernels.elastic)
 
     @property
     def dp_scoring(self) -> tuple[int, int, int, int]:

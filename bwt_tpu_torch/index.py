@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from bwt_tpu_torch import codec
+from bwt_tpu_torch.ops import _kernels
 from bwt_tpu_torch.ops import rank as rank_ops
 from bwt_tpu_torch.ops import suffix
 
@@ -292,6 +293,20 @@ def refuse_wide(fmi: FMIndex, what: str) -> None:
             f"under the int32 cap")
 
 
+def recovery_copy(fmi: FMIndex, err: BaseException) -> FMIndex:
+    """The CPU copy of ``fmi`` that a ``config.elastic_fallback`` re-run
+    serves from (``err`` is the device failure it recovers from).  A tp
+    view has no whole copy, its other blocks living on its peers' cards:
+    ``err`` is raised again with that refusal as its cause.  On a dead card
+    the copy itself raises the card's error, as ``bwt_tpu``'s host copy
+    does."""
+    try:
+        fmi.require_whole("config.elastic_fallback's CPU re-run")
+    except ValueError as refusal:
+        raise err from refusal
+    return fmi.to("cpu")
+
+
 def pack_words(codes: torch.Tensor, length: int) -> torch.Tensor:
     """Codes 0..3 -> 16-lane 2-bit words (int32 bit patterns) plus one
     zero pad word."""
@@ -344,14 +359,15 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
     ``index_dtype`` follows ``bwt_tpu``'s rules:
     ``"auto"`` keeps int32 through ``suffix.INT32_MAX_LEN`` and takes the
     wide (int64) layout past it; ``np.int64`` takes the wide layout at any
-    length; int32 past the cap raises ValueError."""
+    length; int32 past the cap raises ValueError.
+
+    With ``config.elastic_fallback`` set, a device failure during the
+    build (``ops._kernels.device_failure``) prints one line on stderr and
+    the index is built again on the CPU from the genome's host copy, with
+    the same arguments, as ``bwt_tpu`` rebuilds on its CPU backend."""
     from bwt_tpu_torch.config import DEFAULT
 
     cfg = config or DEFAULT
-    if cfg.elastic_fallback:
-        raise NotImplementedError(
-            "config.elastic_fallback is not ported (ROADMAP Queue 1: "
-            "multi-device and recovery)")
     if sa_sample_rate is None:
         sa_sample_rate = cfg.sa_sample_rate
     if cfg.rank_blocksize != codec.BASES_PER_WORD:
@@ -375,8 +391,20 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
             "index_dtype=int64 with a precomputed sa= is not supported (the "
             "sharded build is int32; build through the in-process suffix "
             "sort instead)")
-    device = torch.device(device) if device is not None else default_device()
     host = np.ascontiguousarray(np.asarray(seq, dtype=np.uint8))
+
+    def build(device):
+        device = (torch.device(device) if device is not None
+                  else default_device())
+        return _build(host, sa, device, verify, sa_sample_rate, wide)
+
+    return _kernels.elastic(
+        cfg, "build_index device run failed", "rebuilding on the CPU backend",
+        lambda: build(device), lambda err: build("cpu"))
+
+
+def _build(host: np.ndarray, sa, device, verify: bool, sa_rate: int,
+           wide: bool) -> FMIndex:
     length = len(host)
     codes = torch.from_numpy(host).to(device).to(torch.int64)
     if sa is not None:
@@ -387,14 +415,14 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
                              f"{length} bases (want ({length + 1},))")
         if verify and not suffix.verify_suffix_array(codes, sa):
             raise AssertionError("suffix array verification failed")
-        return _finish_index(codes, sa, length, sa_sample_rate)
+        return _finish_index(codes, sa, length, sa_rate)
     sa, isa = suffix.suffix_array_with_isa(
         codes, dtype=torch.int64 if wide else torch.int32)
     if verify and not suffix.verify_suffix_array(codes, sa):
         raise AssertionError("suffix array verification failed")
     bwt, endloc = suffix.bwt_from_isa(codes, isa)
-    return _assemble(bwt, sa[::sa_sample_rate], endloc, length,
-                     sa_sample_rate, isa[::sa_sample_rate], wide=wide)
+    return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
+                     isa[::sa_rate], wide=wide)
 
 
 def _finish_index(codes: torch.Tensor, sa: torch.Tensor, length: int,

@@ -28,6 +28,7 @@ Deviations from the reference, all where C is undefined:
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -953,8 +954,17 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     run the same share: phase A, the automaton and its escapes, over a tp
     view (``parallel.mesh.serving_index``: ``fmi`` itself if it is one),
     phase B against the genome text as on one device.  It needs the device
-    engine (ValueError otherwise, and for a read past 32,767 bases)."""
+    engine (ValueError otherwise, and for a read past 32,767 bases).
+
+    With ``config.elastic_fallback`` set, a device failure in either
+    engine, the device engine's last copy back included
+    (``ops._kernels.device_failure``), prints one line on stderr; then the
+    index is built again on the CPU from the genome's host copy and the
+    host engine aligns the reads there (:func:`_elastic_align`), without
+    touching the card again, as ``bwt_tpu`` does.  On a mesh a rank
+    re-runs its own share so, then joins the merge."""
     from bwt_tpu_torch.config import DEFAULT
+    from bwt_tpu_torch.ops import _kernels
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -969,21 +979,10 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
         cfg = service.config
     else:
         cfg = DEFAULT
-    if cfg.elastic_fallback:
-        raise NotImplementedError(
-            "config.elastic_fallback is not ported (ROADMAP Queue 1: "
-            "multi-device and recovery)")
     if anchor_len is None:
         anchor_len = cfg.anchor_len
     genome = _as_genome_codes(genome)
     glen = len(genome)
-    if service is not None and (service.config is not cfg
-                                or service.fmi.shard is not fmi.shard):
-        # another config, or a service over the whole index on a tp mesh
-        service = QueryService(
-            fmi, service.genome_dev if service.genome_dev is not None
-            else genome, cfg)
-    svc = service if service is not None else QueryService(fmi, genome, cfg)
     if isinstance(reads, np.ndarray) and reads.ndim == 2:
         # a matrix of equal-length reads skips the per-read loop
         codes_list = np.ascontiguousarray(reads).astype(np.uint8, copy=False)
@@ -1008,22 +1007,58 @@ def align_reads(fmi: FMIndex, genome, reads, *, anchor_len: int | None = None,
     if mesh is not None and not use_dev:
         raise ValueError("mesh= requires the device engine "
                          "(an index with isa_samples)")
-    if mesh is not None:
+
+    def run(part):
+        svc = service
+        if svc is not None and (svc.config is not cfg
+                                or svc.fmi.shard is not fmi.shard):
+            # another config, or a service over the whole index on a tp
+            # mesh
+            svc = QueryService(
+                fmi, svc.genome_dev if svc.genome_dev is not None
+                else genome, cfg)
+        if svc is None:
+            svc = QueryService(fmi, genome, cfg)
+        if use_dev:
+            return _align_reads_device(fmi, genome, glen, part, anchor_len,
+                                       cfg, svc)
+        return _align_reads_host(fmi, genome, glen, part, anchor_len, cfg,
+                                 svc)
+
+    def attempt(part):
+        return _kernels.elastic(
+            cfg, "device engine failed",
+            "rebuilding on the CPU backend and re-running",
+            lambda: run(part),
+            lambda err: _elastic_align(fmi.sa_rate, genome, glen, part,
+                                       anchor_len, cfg))
+
+    if mesh is None:
+        results = attempt(codes_list)
+    else:
         lo, hi = pmesh.share(len(codes_list), mesh)
-        part = (_align_reads_device(fmi, genome, glen, codes_list[lo:hi],
-                                    anchor_len, cfg, svc) if hi > lo else [])
+        part = attempt(codes_list[lo:hi]) if hi > lo else []
         pmesh.done_serving(fmi, given)
         with pmesh.merging():
             results = _merge_results(mesh, part)
-    elif use_dev:
-        results = _align_reads_device(fmi, genome, glen, codes_list,
-                                      anchor_len, cfg, svc)
-    else:
-        results = _align_reads_host(fmi, genome, glen, codes_list,
-                                    anchor_len, cfg, svc)
     if with_strand:
         return results
     return [(p, c) for p, c, _ in results]
+
+
+def _elastic_align(sa_rate, genome, glen, codes_list, anchor_len, cfg):
+    """The ``config.elastic_fallback`` re-run of :func:`align_reads`: the
+    index built again on the CPU from the genome's host copy (the genome
+    is the checkpoint), then the host engine over it, both with the flag
+    off; the results equal the device engine's by the engines' pinned
+    equivalence."""
+    from bwt_tpu_torch.index import build_index
+
+    cfg = dataclasses.replace(cfg, elastic_fallback=False)
+    fmi = build_index(genome, sa_sample_rate=sa_rate, config=cfg,
+                      device="cpu")
+    return _align_reads_host(fmi, genome, glen, codes_list, anchor_len, cfg,
+                             QueryService(fmi, genome, cfg))
 
 
 def align_read_anchored(fmi: FMIndex, genome, read, *,

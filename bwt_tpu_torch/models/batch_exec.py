@@ -407,10 +407,6 @@ class QueryService:
         refuse_wide(fmi, "QueryService")
         self.fmi = fmi
         self.config = config or DEFAULT
-        if self.config.elastic_fallback:
-            raise NotImplementedError(
-                "config.elastic_fallback is not ported (ROADMAP Queue 1: "
-                "multi-device and recovery)")
         self.device = fmi.device
         self.scoring = self.config.dp_scoring
         if genome is None:

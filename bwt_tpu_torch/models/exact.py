@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from bwt_tpu_torch import codec
-from bwt_tpu_torch.index import FMIndex
-from bwt_tpu_torch.ops import search
+from bwt_tpu_torch.index import FMIndex, recovery_copy
+from bwt_tpu_torch.ops import _kernels, search
 
 MIN_ANCHOR = 20  # search_reads.c:115,119
 PAIR_WINDOW = 10000  # search_reads.c:154
@@ -333,18 +333,24 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
     chunk as above, and one all-gather along 'dp' gives every rank the
     whole result in read order, equal to the single-device run's.  With
     tp > 1 the ranks of a tp group scan the same share over a tp view
-    (``parallel.mesh.serving_index``: ``fmi`` itself if it is one)."""
+    (``parallel.mesh.serving_index``: ``fmi`` itself if it is one).
+
+    With ``config.elastic_fallback`` set, a device failure anywhere in the
+    scan (a launch, a chunk in flight, the last copy back;
+    ``ops._kernels.device_failure``) prints one line on stderr and the
+    scan runs again on a CPU copy of the index
+    (``index.recovery_copy``), which raises the card's error again if the
+    card is gone, as ``bwt_tpu``'s host copy does.  On a mesh a rank
+    re-runs its own share so, then joins the merge; a tp view the caller
+    passed has no CPU copy, and the device error is raised again."""
     from bwt_tpu_torch.config import DEFAULT
 
     cfg = config or DEFAULT
+    given = fmi
     if mesh is not None:
         from bwt_tpu_torch.parallel import mesh as pmesh
 
-        given, fmi = fmi, pmesh.serving_index(fmi, mesh)
-    if cfg.elastic_fallback:
-        raise NotImplementedError(
-            "config.elastic_fallback is not ported (ROADMAP Queue 1: "
-            "multi-device and recovery)")
+        fmi = pmesh.serving_index(fmi, mesh)
     min_anchor = cfg.min_anchor if min_anchor is None else min_anchor
     pair_window = cfg.pair_window if pair_window is None else pair_window
     pat, lens = _encode_batch(reads, narrow=True)
@@ -356,7 +362,12 @@ def search_reads(fmi: FMIndex, reads, *, min_anchor: int | None = None,
         lo, hi = pmesh.share(pat.shape[0], mesh)
         pat, lens = pat[lo:hi], lens[lo:hi]
     scan = _scan_on_card if search._on_card(fmi) else _scan_on_cpu
-    fm, fp, bm, bp = scan(fmi, pat, lens, min_anchor, cfg.search_batch)
+    fm, fp, bm, bp = _kernels.elastic(
+        cfg, "search_reads device scan failed",
+        "re-running on the CPU backend",
+        lambda: scan(fmi, pat, lens, min_anchor, cfg.search_batch),
+        lambda err: _scan_on_cpu(recovery_copy(given, err), pat, lens,
+                                 min_anchor, cfg.search_batch))
     if mesh is not None:
         pmesh.done_serving(fmi, given)
         with pmesh.merging():

@@ -33,11 +33,13 @@ of the K9 kernel a chunk of reads (:mod:`bwt_tpu_torch.ops.automaton`).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from bwt_tpu_torch import codec
-from bwt_tpu_torch.index import FMIndex, refuse_wide
+from bwt_tpu_torch.index import FMIndex, recovery_copy, refuse_wide
 from bwt_tpu_torch.models.batch_exec import (
     BatchExecutor, QueryService, _host_array, _to_device, _to_host_async)
 from bwt_tpu_torch.ops import automaton
@@ -248,28 +250,40 @@ def rna_seq_device(fmi: FMIndex, reads, *, config=None, service=None,
 
     The cyclic garbage collector is paused for the call: the engine
     allocates no cycles."""
+    refuse_wide(fmi, "rna_seq")
+    if mesh is None:
+        return _rna_seq_device_gc(fmi, reads, config, service)
+    return _on_mesh(fmi, reads, service, mesh,
+                    lambda served, part, svc: _rna_seq_device_gc(
+                        served, part, config, svc))
+
+
+def _rna_seq_device_gc(fmi, reads, config, service):
     import gc
 
-    refuse_wide(fmi, "rna_seq")
-    if mesh is not None:
-        from bwt_tpu_torch.parallel import mesh as pmesh
-
-        given, fmi = fmi, pmesh.serving_index(fmi, mesh)
-        if service is not None and service.fmi.shard is not fmi.shard:
-            # a service over the whole index: serve from the view
-            service = QueryService(fmi, config=service.config)
-        lo, hi = pmesh.share(len(reads), mesh)
-        reads = reads[lo:hi]
     was_enabled = gc.isenabled()
     gc.disable()
     try:
-        res = _rna_seq_device_inner(fmi, reads, config=config,
-                                    service=service)
+        return _rna_seq_device_inner(fmi, reads, config=config,
+                                     service=service)
     finally:
         if was_enabled:
             gc.enable()
-    if mesh is None:
-        return res
+
+
+def _on_mesh(fmi, reads, service, mesh, run):
+    """A driver's run on a mesh: ``run(served, part, service)`` on this
+    rank's share ``part`` of the reads along 'dp', over the index it
+    serves from (``parallel.mesh.serving_index``), then one all-gather
+    along 'dp' of the (n,) results."""
+    from bwt_tpu_torch.parallel import mesh as pmesh
+
+    given, fmi = fmi, pmesh.serving_index(fmi, mesh)
+    if service is not None and service.fmi.shard is not fmi.shard:
+        # a service over the whole index: serve from the view
+        service = QueryService(fmi, config=service.config)
+    lo, hi = pmesh.share(len(reads), mesh)
+    res = run(fmi, reads[lo:hi], service)
     pmesh.done_serving(fmi, given)
     with pmesh.merging():
         return pmesh.gather_batch(mesh, res)
@@ -386,26 +400,52 @@ def rna_seq(fmi: FMIndex, reads, *, config=None, service=None,
     same either way, and equal the JAX package's for either of its
     engines.  ``mesh`` shards the reads over its 'dp' axis
     (:func:`rna_seq_device`) and needs the device engine (ValueError
-    otherwise)."""
+    otherwise).
+
+    With ``config.elastic_fallback`` set, a device failure in either
+    engine (``ops._kernels.device_failure``) prints one line on stderr and
+    the host engine runs the reads again on a CPU copy of the index
+    (``index.recovery_copy``: it raises the card's error again if the card
+    is gone, as ``bwt_tpu``'s host copy does; ``rna_seq`` has no genome to
+    rebuild from).  On a mesh a rank re-runs its own share so, then joins
+    the merge; a tp view the caller passed has no CPU copy, and the device
+    error is raised again."""
     from bwt_tpu_torch.config import DEFAULT
+    from bwt_tpu_torch.ops import _kernels
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
     refuse_wide(fmi, "rna_seq")
     cfg = config or (service.config if service is not None else DEFAULT)
-    if cfg.elastic_fallback:
-        raise NotImplementedError(
-            "config.elastic_fallback is not ported (ROADMAP Queue 1: "
-            "multi-device and recovery)")
     use_dev = engine == "device" or (
         engine == "auto" and fmi.isa_samples is not None
         and cfg.rnaseq_cont_cutoff + 6 <= 32)
     if mesh is not None and not use_dev:
         raise ValueError("mesh= requires the device engine "
                          "(an index with isa_samples)")
-    if use_dev:
-        return rna_seq_device(fmi, reads, config=cfg, service=service,
-                              mesh=mesh)
+
+    def run(served, part, svc):
+        if use_dev:
+            return rna_seq_device(served, part, config=cfg, service=svc)
+        return _rna_seq_host(served, part, cfg, svc)
+
+    def attempt(served, part, svc):
+        # the re-run copies the caller's index, not a tp view served from
+        return _kernels.elastic(
+            cfg, "rna_seq device engine failed",
+            "re-running on the CPU backend",
+            lambda: run(served, part, svc),
+            lambda err: _rna_seq_host(
+                recovery_copy(fmi, err), part,
+                dataclasses.replace(cfg, elastic_fallback=False), None))
+
+    if mesh is None:
+        return attempt(fmi, reads, service)
+    return _on_mesh(fmi, reads, service, mesh, attempt)
+
+
+def _rna_seq_host(fmi, reads, cfg, service):
+    """The host engine: one generator a read over the executor."""
     svc = service if service is not None else QueryService(fmi, config=cfg)
     svc.reset_reads()
     gens = []

@@ -7,10 +7,16 @@ source, all started together, then one link.  The file name carries a
 hash of the sources and flags, so the library rebuilds only when they
 change.  It is loaded with ``ctypes``.  Importing this module needs no
 ``nvcc``; building does.
+
+A launcher's nonzero return goes through :func:`check_launch`, which
+raises :class:`KernelLaunchError` for a code that says the card failed;
+:func:`device_failure` says which errors are a failed card, the only ones
+that ``config.elastic_fallback`` recovers from (:func:`elastic`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +25,8 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -168,3 +176,100 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+# CUDA runtime error codes that say the card or its context failed: an
+# allocation the card refused (2), an uncorrectable ECC or NVLink error
+# (214, 215), and the sticky faults of a kernel (700 illegal address, 702
+# launch timeout, 710 device assert, 714 hardware stack error, 715
+# illegal instruction, 716 misaligned address, 717 invalid address space,
+# 718 invalid program counter, 719 launch failure), which a later launch's
+# cudaGetLastError returns too.  Any other code (1 an invalid argument
+# from a launcher's own checks, 9 an invalid configuration, 98 or 209 no
+# kernel image for the card, 701 too many resources asked, -1 an element
+# type with no kernel) is the launch's own fault.
+DEVICE_FAILURE_CODES = frozenset(
+    {2, 214, 215, 700, 702, 710, 714, 715, 716, 717, 718, 719})
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launcher returned a CUDA error that says the card or its
+    context failed (:data:`DEVICE_FAILURE_CODES`): a failed card, or such
+    an error still pending from earlier work."""
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise for a launcher's nonzero return ``err``: KernelLaunchError for
+    a code of :data:`DEVICE_FAILURE_CODES`, a plain RuntimeError for any
+    other (an argument, configuration or image the launch got wrong,
+    which a re-run on the CPU would hide)."""
+    if err != 0:
+        cls = (KernelLaunchError if err in DEVICE_FAILURE_CODES
+               else RuntimeError)
+        raise cls(f"{what} failed: CUDA error {err}")
+
+
+def device_failure(e: BaseException) -> bool:
+    """Whether ``e`` says that the card failed: a refused launch
+    (:class:`KernelLaunchError`), the sticky fault a synchronise reports
+    (``torch.AcceleratorError``: an illegal address, a kernel trap, after
+    which every CUDA call of the process fails), or the card's memory
+    exhausted (``torch.OutOfMemoryError``).  Nothing else is: not a plain
+    RuntimeError, a bound check (a walk past the suffix array, a hunt that
+    makes no progress), a launch refused for its own arguments
+    (:func:`check_launch`), a missing card or a failed build of the
+    kernels, which a re-run on the CPU would hide."""
+    return isinstance(e, (KernelLaunchError, torch.AcceleratorError,
+                          torch.OutOfMemoryError))
+
+
+def elastic(config, failed: str, action: str, run, recover):
+    """``run()``, and with ``config.elastic_fallback`` set, on a device
+    failure in it (:func:`device_failure`) one line on stderr, then
+    ``recover(err)``, which must not touch the card again: a CUDA fault is
+    sticky.  Any other error propagates, and so does every error without
+    the flag."""
+    if not config.elastic_fallback:
+        return run()
+    try:
+        return run()
+    except RuntimeError as err:
+        if not device_failure(err):
+            raise
+        print(f"bwt_tpu_torch: {failed} ({type(err).__name__}); {action} "
+              "(config.elastic_fallback)", file=sys.stderr, flush=True)
+        return recover(err)
+
+
+class _Refusing:
+    """The kernel library with its launcher ``name`` returning ``code``
+    at its ``nth`` call, without launching (:func:`refusing`)."""
+
+    def __init__(self, lib, name: str, nth: int, code: int):
+        self._lib, self._name, self._nth, self._code = lib, name, nth, code
+        self.calls = 0
+
+    def __getattr__(self, attr):
+        fn = getattr(self._lib, attr)
+        if attr != self._name:
+            return fn
+
+        def launch(*args):
+            self.calls += 1
+            return self._code if self.calls == self._nth else fn(*args)
+        return launch
+
+
+@contextlib.contextmanager
+def refusing(name: str, nth: int = 1, code: int = 719):
+    """A test hook: within it, the library's launcher ``name`` returns the
+    CUDA error ``code`` at its ``nth`` call instead of launching (719,
+    cudaErrorLaunchFailure, by default: a device failure).  Builds the
+    library."""
+    global _lib
+    lib = library()
+    _lib = _Refusing(lib, name, nth, code)
+    try:
+        yield _lib
+    finally:
+        _lib = lib

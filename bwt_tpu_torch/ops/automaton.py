@@ -318,9 +318,7 @@ def _automaton_kernel(fmi: FMIndex, bank, lens, live0, seed_rows, *, ac, cc,
             int(resolve), cap, *search._seed_args(fmi, table),
             *search._index_args(fmi), *search._samples_args(fmi), *isa,
             out.data_ptr(), search._stream(fmi.device))
-        if err != 0:
-            raise RuntimeError(f"rnaseq_automaton kernel launch failed: CUDA "
-                               f"error {err}")
+        _kernels.check_launch(err, "rnaseq_automaton kernel launch")
         AUTOMATON_LAUNCHES += 1
     return out
 
@@ -767,9 +765,7 @@ def _align_kernel(fmi: FMIndex, bank, lens, live0, glen, seed_rows, *,
             *search._seed_args(fmi, table), *search._index_args(fmi),
             *search._samples_args(fmi), *isa, out.data_ptr(),
             search._stream(dev))
-        if err != 0:
-            raise RuntimeError(f"align_automaton kernel launch failed: CUDA "
-                               f"error {err}")
+        _kernels.check_launch(err, "align_automaton kernel launch")
         ALIGN_LAUNCHES += 1
     return out
 

@@ -148,8 +148,6 @@ def compose(log, acc, *, K: int = RUNS_K, plain: bool = False
             err = lib.compose_launch(log.data_ptr(), Bp, acc.data_ptr(),
                                      dpw.BLOCK_W, K, F2, out.data_ptr(),
                                      stream)
-        if err != 0:
-            raise RuntimeError(f"compose kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "compose kernel launch")
         COMPOSE_LAUNCHES += 1
     return out

@@ -101,9 +101,7 @@ def dp_fill_wavefront(reads: torch.Tensor, genomes: torch.Tensor, *,
         err = lib.dp_wavefront_launch(
             reads.data_ptr(), genomes.data_ptr(), vals.data_ptr(),
             ptrs.data_ptr(), B, L1, L2, *scoring, stream)
-    if err != 0:
-        raise RuntimeError(f"dp_wavefront kernel launch failed: CUDA error "
-                           f"{err}")
+    _kernels.check_launch(err, "dp_wavefront kernel launch")
     LAUNCHES += 1
     return vals, ptrs
 
@@ -358,9 +356,7 @@ def dp_stitch(bank: torch.Tensor, genome: torch.Tensor, row, roff, rlen,
                 genome.shape[0], *(f.data_ptr() for f in fields), B, L1, L2,
                 *scoring, RLE_R, _TALL_ROWS, P.data_ptr(), ops.data_ptr(),
                 scratch.data_ptr() if scratch is not None else None, stream)
-        if err != 0:
-            raise RuntimeError(f"dp_stitch kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "dp_stitch kernel launch")
         STITCH_LAUNCHES += 1
     return P, ops
 
@@ -586,8 +582,6 @@ def dp_log_stitch(log, bank, genome, jk, jt, acc, *, L1: int, L2: int,
             genome.data_ptr(), genome.shape[0], jk.data_ptr(), jt.data_ptr(),
             J, L1, L2, *scoring, RLE_R, _TALL_ROWS, acc.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, stream)
-    if err != 0:
-        raise RuntimeError(f"dp_log_stitch kernel launch failed: CUDA error "
-                           f"{err}")
+    _kernels.check_launch(err, "dp_log_stitch kernel launch")
     LOG_STITCH_LAUNCHES += 1
     return None

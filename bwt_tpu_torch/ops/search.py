@@ -260,9 +260,7 @@ def _seed_rows_kernel(fmi: FMIndex, k: int) -> torch.Tensor:
     lib = _kernels.library()
     launch = lib.seed_rows_wide_launch if fmi.wide else lib.seed_rows_launch
     err = launch(k, *_index_args(fmi), out.data_ptr(), _stream(fmi.device))
-    if err != 0:
-        raise RuntimeError(f"seed_rows kernel launch failed: CUDA error "
-                           f"{err}")
+    _kernels.check_launch(err, "seed_rows kernel launch")
     SEED_LAUNCHES += 1
     return out
 
@@ -496,9 +494,7 @@ def _backward_search_kernel(fmi: FMIndex, patterns, lengths, *,
             None if sp is None else sp.data_ptr(),
             None if ep is None else ep.data_ptr(), *seed,
             *_index_args(fmi), out.data_ptr(), _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"backward_search kernel launch failed: CUDA "
-                               f"error {err}")
+        _kernels.check_launch(err, "backward_search kernel launch")
         BS_LAUNCHES += 1
     r = dict(zip(_FIELDS, out.unbind(0)))
     r["alive"] = r["alive"] != 0
@@ -643,9 +639,7 @@ def _unc_sa_kernel(fmi: FMIndex, idx, max_steps: int | None = None):
             flat.data_ptr(), B, *_index_args(fmi), *_samples_args(fmi),
             max(limit, 0), int(limit == bound), out.data_ptr(),
             flag.data_ptr(), _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"unc_sa kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "unc_sa kernel launch")
         UNC_LAUNCHES += 1
         if limit == bound:
             n_over, top = flag.tolist()  # top = B - the first lane over
@@ -699,9 +693,7 @@ def locate_kernel(fmi: FMIndex, patterns, lengths, seed_table=None):
             patterns.data_ptr(), lengths.data_ptr(), B, L, *seed,
             *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
             _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"locate kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "locate kernel launch")
         LOCATE_LAUNCHES += 1
     return out
 
@@ -775,9 +767,7 @@ def anchor_scan_kernel(fmi: FMIndex, patterns: torch.Tensor,
             lengths.data_ptr(), B, L, int(min_anchor), int(reverse),
             *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
             _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"anchor_scan kernel launch failed: CUDA "
-                               f"error {err}")
+        _kernels.check_launch(err, "anchor_scan kernel launch")
         ANCHOR_LAUNCHES += 1
     return out
 
@@ -869,9 +859,7 @@ def _isa_window_kernel(fmi: FMIndex, plo, width, *, W: int = 32):
             plo.data_ptr(), width.data_ptr(), B, W, *_index_args(fmi), *isa,
             fmi.sa_rate.bit_length() - 1, fmi.length, out.data_ptr(),
             _stream(fmi.device))
-        if err != 0:
-            raise RuntimeError(f"isa_window kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "isa_window kernel launch")
         ISA_LAUNCHES += 1
     return out
 

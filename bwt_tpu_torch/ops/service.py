@@ -297,9 +297,7 @@ def _service_kernel(fmi: FMIndex, bank, fields, *, resolve, ext, seed_rows,
             int(ext), int(walk), *search._seed_args(fmi, table),
             *search._index_args(fmi), *search._samples_args(fmi),
             *isa, out.data_ptr(), search._stream(dev))
-        if err != 0:
-            raise RuntimeError(f"service kernel launch failed: CUDA error "
-                               f"{err}")
+        _kernels.check_launch(err, "service kernel launch")
         SERVICE_LAUNCHES += 1
     return out
 

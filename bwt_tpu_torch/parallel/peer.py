@@ -28,13 +28,9 @@ import torch
 import torch.distributed as dist
 
 from bwt_tpu_torch.ops import _kernels
+from bwt_tpu_torch.ops._kernels import check_launch as _check
 
 HANDLE_BYTES = 64
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
 class Block:
@@ -46,6 +42,7 @@ class Block:
         self.device = device
         self.shape = tuple(int(n) for n in shape)
         self.dtype = dtype
+        self.ptr = None  # until the allocation succeeds
         nbytes = dtype.itemsize
         for n in self.shape:
             nbytes *= n

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --rna-walls N   # rna_seq's device-engine wall alone
     python3 chip_smoke.py --mesh-only 25  # phase 11 alone, at 2^25 bases
     python3 chip_smoke.py --tp-only 25    # phase 11's tp meshes alone
+    python3 chip_smoke.py --elastic-only  # phase 13 alone
 
 Phases, one output line each (phases 2 and 7 one per case, phase 10 three, phase 11 six a world), every number beside
 the card's name and power limit:
@@ -162,6 +163,31 @@ the card's name and power limit:
      shifted-samples index (shifted_index: positions past int32), equal to
      their plain versions; and align_reads, rna_seq and isa_window on the
      wide index raising ValueError with no launch;
+  13. config.elastic_fallback, before phase 9, in a child process so that
+     the fault it makes never reaches this one (``--elastic-child``;
+     ``--elastic-only`` runs it alone): on a 2^16-base genome, 512 reads
+     of 80 bp with one substitution, 1,024 of 50 bp with one base
+     complemented and 1,024 unmutated 50-bp reads, at a search_batch of
+     512 (two chunks of rna_seq and search_reads), with their outputs
+     computed here on the CPU and passed by file.  (a) Each surface
+     (build_index, align_reads, rna_seq, search_reads) on the card as it
+     is, equal to the CPU's; then with an injected failure: a launcher of
+     the library refusing a call with CUDA error 719 (the compose of the
+     aligner's chunk, the second chunk's K9, the second chunk's first
+     anchor scan, with the first chunk in flight; the build's suffix sort
+     raising, as the build launches no kernel of its own),
+     KernelLaunchError in the wrapper: with the flag its output equals the
+     card's run, with one stderr line, and without the flag the error
+     reaches the caller; the same launch refused with CUDA error 1 (an
+     argument error) reaches the caller as a plain RuntimeError with the
+     flag set, with no line.  (b) A real
+     sticky fault: K5's launcher given an invalid device pointer, whose
+     synchronise must raise torch.AcceleratorError, the next copy failing
+     too; then, with the flag, build_index and align_reads must give the
+     CPU's values (rebuilt on the CPU from the genome's host copy, without
+     the card) and search_reads and rna_seq, whose index lives on the dead
+     card, must raise a device error after their line.  Every check fails
+     the run;
   9. one torch.profiler window over each exact-search path and over
      the device engines of rna_seq and single_align, last because the
      profiler slows every later launch of its process: locate plain and
@@ -5329,6 +5355,307 @@ def mesh_only(bits: int, seed: int = 0, tp_only: bool = False) -> dict:
                       ROOT / "build" / "chip_smoke" / "mesh", peak, tp_only)
 
 
+ELASTIC_BITS = 16
+ELASTIC_READS = dict(align=512, rna=1024, search=1024)
+ELASTIC_BATCH = 512      # config.search_batch: two chunks of 1,024 reads
+ELASTIC_TIMEOUT_S = 300  # the child's wall
+ELASTIC_SURFACES = ("build_index", "align_reads", "rna_seq", "search_reads")
+# (a)'s failed launch on the card: the launcher and the call of it that
+# refuses (the second chunk's, with the first one's work in flight), or,
+# for the build, which launches no kernel, its suffix sort
+ELASTIC_INJECT = dict(align_reads=("compose_launch", 1),
+                      rna_seq=("rnaseq_automaton_launch", 2),
+                      search_reads=("anchor_scan_launch", 3),
+                      build_index=("suffix_array_with_isa", 1))
+
+
+@contextlib.contextmanager
+def failing_launch(surface: str, code: int = 719):
+    """(a)'s injected failure of ``surface`` on the card (ELASTIC_INJECT):
+    a launch the library refuses with CUDA error ``code``
+    (``ops._kernels.refusing``; 719, cudaErrorLaunchFailure, a device
+    failure), or the build's sort raising ``KernelLaunchError`` once."""
+    from bwt_tpu_torch.ops import _kernels, suffix
+
+    name, nth = ELASTIC_INJECT[surface]
+    if surface == "build_index":
+        orig, calls = suffix.suffix_array_with_isa, []
+
+        def sort(*a, **kw):
+            calls.append(1)
+            if len(calls) == nth:
+                raise _kernels.KernelLaunchError("injected device failure")
+            return orig(*a, **kw)
+
+        suffix.suffix_array_with_isa = sort
+        try:
+            yield
+        finally:
+            suffix.suffix_array_with_isa = orig
+        return
+    with _kernels.refusing(name, nth, code):
+        yield
+
+
+def elastic_inputs(seed: int) -> dict:
+    """The elastic phase's inputs, made from ``seed``: a 2^16-base random
+    genome and, cut from it by phase 5, 10 and 8's recipes, 80-bp reads
+    with one substitution, 50-bp reads with one base complemented and
+    unmutated 50-bp reads."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 16])
+    codes = rng.integers(0, 4, size=1 << ELASTIC_BITS).astype(np.uint8)
+    starts = rng.integers(0, len(codes) - 50, size=ELASTIC_READS["search"])
+    return dict(
+        codes=codes,
+        align=mutated_reads(rng, codes, ELASTIC_READS["align"])[1],
+        rna=complemented_reads(rng, codes, ELASTIC_READS["rna"])[1],
+        search=codes[np.add.outer(starts, np.arange(50))])
+
+
+def elastic_run(surface: str, x: dict, fmi, config):
+    """One call of ``surface`` on the elastic phase's inputs, its output
+    made comparable (the index's arrays, the alignments' rendered CIGARs)."""
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+
+    if surface == "build_index":
+        dev = None if fmi is None else fmi.device
+        return bwt_tpu_torch.build_index(x["codes"], sa_sample_rate=4,
+                                         config=config,
+                                         device=dev).to_numpy()
+    if surface == "align_reads":
+        return _norm(aligner.align_reads(fmi, x["codes"], x["align"],
+                                         config=config, with_strand=True))
+    if surface == "rna_seq":
+        return rnaseq.rna_seq(fmi, x["rna"], config=config)
+    return exact.search_reads(fmi, x["search"], config=config)
+
+
+def elastic_equal(a, b) -> bool:
+    import numpy as np
+
+    if a is None or b is None:
+        return False
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(elastic_equal(a[k], b[k]) for k in a))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+def elastic_call(surface: str, x: dict, fmi, config) -> dict:
+    """``surface`` called once with its stderr captured: its output or the
+    error it raised, its wall and its recovery lines."""
+    import io
+
+    from bwt_tpu_torch.ops import _kernels
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            out = dict(out=elastic_run(surface, x, fmi, config))
+    except RuntimeError as e:
+        out = dict(raised=type(e).__name__,
+                   device_failure=_kernels.device_failure(e), message=str(e))
+    out.update(s=time.perf_counter() - t0, lines=[
+        ln for ln in err.getvalue().splitlines()
+        if "(config.elastic_fallback)" in ln])
+    return out
+
+
+def elastic_child(workdir: Path) -> int:
+    """The elastic phase's child (``--elastic-child``).  (a) On the card,
+    each surface three times: as it is, with an injected failure and the
+    flag (its output must equal the first run's, with one stderr line),
+    and with the failure without the flag (the error must reach the
+    caller); and, but for the build, a fourth with the launch refused for
+    its arguments and the flag (a plain RuntimeError must reach the
+    caller).  (b) Then a real sticky fault: a launcher of the library
+    given an invalid device pointer, and a synchronise, which must raise
+    torch.AcceleratorError; after it, with the flag, build_index and
+    align_reads must give the CPU's values without the card, and
+    search_reads and rna_seq, whose index lives on the dead card, must
+    raise a device error.  Prints its checks as one JSON line (``ELASTIC
+    {...}``) and leaves with ``os._exit``: the process's CUDA state is
+    poisoned, and its teardown is not what is checked."""
+    import dataclasses
+    import os
+    import pickle
+
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.config import DEFAULT
+    from bwt_tpu_torch.ops import _kernels, search
+
+    x, want = pickle.loads((workdir / "inputs.pkl").read_bytes())
+    plain = dataclasses.replace(DEFAULT, search_batch=ELASTIC_BATCH)
+    flag = dataclasses.replace(plain, elastic_fallback=True)
+    dev = torch.device("cuda")
+    _kernels.library()
+    fmi = bwt_tpu_torch.build_index(x["codes"], sa_sample_rate=4, device=dev)
+    report = dict(injected={}, fault={}, after={})
+    for surface in ELASTIC_SURFACES:
+        idx = fmi if surface != "build_index" else None
+        base = elastic_call(surface, x, idx, plain)
+        with failing_launch(surface):
+            got = elastic_call(surface, x, idx, flag)
+        with failing_launch(surface):
+            bare = elastic_call(surface, x, idx, plain)
+        own = {}
+        if surface != "build_index":
+            # a launch refused for its own arguments (1,
+            # cudaErrorInvalidValue) is no device failure
+            with failing_launch(surface, code=1):
+                own = elastic_call(surface, x, idx, flag)
+        report["injected"][surface] = dict(
+            card_equals_cpu=elastic_equal(base.get("out"), want[surface]),
+            recovered_equal=elastic_equal(got.get("out"), base.get("out")),
+            lines=got["lines"], raised_without_flag=bare.get("raised"),
+            own_fault=dict(raised=own.get("raised"),
+                           device_failure=own.get("device_failure"),
+                           lines=own.get("lines")),
+            card_s=base["s"], recovered_s=got["s"],
+            errors=[r["message"] for r in (base, got) if "raised" in r])
+    torch.cuda.synchronize()
+
+    # (b) a real fault: K5's launcher reading its index at address 0x10
+    bad = 0x10
+    out = torch.empty((4 ** 2, 6), dtype=torch.int32, device=dev)
+    err = _kernels.library().seed_rows_launch(
+        2, bad, fmi.buckets.shape[0], 0, bad, bad, out.data_ptr(),
+        search._stream(dev))
+    fault = dict(launch_error=err)
+    try:
+        torch.cuda.synchronize()
+        fault["raised"] = None
+    except Exception as e:  # what the synchronise raises is the check
+        fault.update(raised=type(e).__name__,
+                     accelerator=isinstance(e, torch.AcceleratorError),
+                     device_failure=_kernels.device_failure(e))
+    try:
+        (torch.ones(1, device=dev) + 1).cpu()
+        fault["sticky"] = False
+    except Exception as e:  # the next CUDA call must fail too
+        fault["sticky"] = _kernels.device_failure(e)
+    fault["cuda_available"] = torch.cuda.is_available()
+    report["fault"] = fault
+    for surface in ELASTIC_SURFACES:
+        got = elastic_call(surface, x, fmi if surface != "build_index"
+                           else None, flag)
+        report["after"][surface] = dict(
+            equal=elastic_equal(got.get("out"), want[surface]),
+            raised=got.get("raised"),
+            device_failure=got.get("device_failure"), lines=got["lines"],
+            s=got["s"], message=got.get("message"))
+    print("ELASTIC " + json.dumps(report), flush=True)
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def phase_elastic(tag, seed: int = 0,
+                  workdir: Path = ROOT / "build" / "chip_smoke" / "elastic"):
+    """The elastic phase (config.elastic_fallback), in a child process so
+    that the sticky fault it makes never reaches this one: the inputs and
+    their outputs on the CPU are made here and passed by file, the child
+    (:func:`elastic_child`) runs the checks on the card, and its JSON line
+    is held to them here."""
+    import pickle
+    import shutil
+
+    import bwt_tpu_torch
+
+    t0 = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    x = elastic_inputs(seed)
+    cpu = bwt_tpu_torch.build_index(x["codes"], sa_sample_rate=4,
+                                    device="cpu")
+    want = {s: elastic_run(s, x, cpu if s != "build_index" else None, None)
+            for s in ELASTIC_SURFACES if s != "build_index"}
+    want["build_index"] = cpu.to_numpy()
+    (workdir / "inputs.pkl").write_bytes(pickle.dumps((x, want)))
+    cpu_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--elastic-child",
+             str(workdir)], cwd=ROOT, capture_output=True, text=True,
+            timeout=ELASTIC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"elastic: the child ran past "
+                           f"{ELASTIC_TIMEOUT_S} s") from e
+    child_s = time.perf_counter() - t1
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("ELASTIC ")]
+    require(res.returncode == 0 and len(lines) == 1,
+            f"elastic: the child exited {res.returncode} without its line; "
+            f"stderr ends:\n{res.stderr[-3000:]}")
+    rep = json.loads(lines[0][len("ELASTIC "):])
+    for surface, r in rep["injected"].items():
+        require(r["card_equals_cpu"], f"elastic {surface}: the card's run "
+                                      f"differs from the CPU's")
+        require(r["recovered_equal"] and len(r["lines"]) == 1
+                and "KernelLaunchError" in r["lines"][0],
+                f"elastic {surface}: the injected failure was not recovered "
+                f"with equal output and one line: {r}")
+        require(r["raised_without_flag"] == "KernelLaunchError",
+                f"elastic {surface}: without the flag the failure did not "
+                f"reach the caller: {r}")
+        own = r["own_fault"]
+        require(surface == "build_index"
+                or (own["raised"] == "RuntimeError"
+                    and own["device_failure"] is False
+                    and own["lines"] == []),
+                f"elastic {surface}: a launch refused with CUDA error 1 (an "
+                f"argument error) did not reach the caller as a plain "
+                f"RuntimeError with the flag set: {r}")
+    f = rep["fault"]
+    require(f["raised"] == "AcceleratorError" and f["accelerator"]
+            and f["device_failure"] and f["sticky"],
+            f"elastic: the invalid pointer did not give a sticky "
+            f"torch.AcceleratorError: {f}")
+    after = rep["after"]
+    for surface in ("build_index", "align_reads"):
+        r = after[surface]
+        require(r["equal"] and len(r["lines"]) == 1,
+                f"elastic {surface} after the fault: not the CPU's values "
+                f"with one line: {r}")
+    for surface in ("search_reads", "rna_seq"):
+        r = after[surface]
+        require(r["raised"] is not None and r["device_failure"]
+                and len(r["lines"]) == 1,
+                f"elastic {surface} after the fault: its index lives on the "
+                f"dead card, and the device error did not reach the caller "
+                f"after its line: {r}")
+    inj = rep["injected"]
+    print(f"phase 13 elastic ({cpu_s + child_s:.1f} s: the inputs and their "
+          f"CPU outputs {cpu_s:.1f} s, the child {child_s:.1f} s), 2^"
+          f"{ELASTIC_BITS}-base genome, search_batch {ELASTIC_BATCH}: (a) an "
+          f"injected KernelLaunchError (CUDA error 719) recovered with the "
+          f"card's own output and one stderr line, and raised without the "
+          f"flag, on each surface, and a launch refused with CUDA error 1 "
+          f"raised as a plain RuntimeError with the flag; the card's run / "
+          f"the recovered run: " + ", ".join(
+              f"{s} {r['card_s']:.4f} / {r['recovered_s']:.4f} s"
+              for s, r in inj.items())
+          + f"; (b) an invalid pointer in K5's launcher: "
+            f"{f['raised']} at the synchronise, sticky (the next copy "
+            f"fails; torch.cuda.is_available() {f['cuda_available']}); "
+            f"then with the flag build_index "
+            f"{after['build_index']['s']:.4f} s and align_reads "
+            f"{after['align_reads']['s']:.4f} s equal to the CPU's, "
+            f"search_reads and rna_seq raising "
+            f"{after['search_reads']['raised']} / "
+            f"{after['rna_seq']['raised']} after their lines {tag}",
+          flush=True)
+    return dict(cpu_s=cpu_s, child_s=child_s, **rep)
+
+
 def phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
                    codes_np, align_reads):
     """Phase 9: one torch.profiler window over each exact-search path and
@@ -5454,6 +5781,10 @@ def main(argv=None) -> int:
                     help="only run phase 11's tp meshes on a 2^BITS-base "
                          "genome (as --mesh-only, in the gloo world of four "
                          "ranks alone), and exit")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="only run the elastic phase (config.elastic_fallback"
+                         ", phase 13) and exit")
+    ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-tp-only", action="store_true",
                     help=argparse.SUPPRESS)
@@ -5470,6 +5801,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.elastic_child:
+        return elastic_child(Path(args.elastic_child))
+    if args.elastic_only:
+        phase_elastic(f"[{card_line()}]", args.seed)
+        return 0
     if args.mesh_child:
         return mesh_child(Path(args.mesh_child), args.mesh_backend,
                           args.mesh_world, args.mesh_rank, args.mesh_tp_only)
@@ -5595,6 +5931,7 @@ def main(argv=None) -> int:
                                 report["build"]["peak_gib"], wide=wide)
     del wide
     del keep
+    report["elastic"] = phase_elastic(tag, args.seed)
     phase_profiles(fmi, table, kmers, reads, rna_reads, report, tag,
                    codes, sub_reads)
     del fmi, table, kmers

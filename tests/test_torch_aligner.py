@@ -85,8 +85,10 @@ def test_align_read_matches_bwt_tpu(env):
 
 
 def test_unported_engines_raise(env):
-    """elastic_fallback is not ported and raises; the device engine is,
-    and runs."""
+    """The device engine runs and an unknown engine raises;
+    config.elastic_fallback is accepted and, without a device failure,
+    changes no result (tests/test_torch_elastic.py drives the
+    recovery)."""
     g, jfmi = env
     tfmi = to_port(jfmi)
     reads = ["ACGT", g[100:180]]
@@ -97,8 +99,9 @@ def test_unported_engines_raise(env):
     assert got[1][0] == 101
     cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,
                               elastic_fallback=True)
-    with pytest.raises(NotImplementedError):
-        taligner.align_reads(tfmi, g, ["ACGT"], config=cfg)
+    assert _norm(taligner.align_reads(tfmi, g, reads, engine="device",
+                                      with_strand=True, config=cfg)) == (
+        _norm(got))
     with pytest.raises(ValueError):
         taligner.align_reads(tfmi, g, ["ACGT"], engine="gpu")
 

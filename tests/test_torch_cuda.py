@@ -5,9 +5,10 @@ service round, the rna_seq automaton, the aligner automaton and its phase
 B's log stitch and compose) against their plain versions, the tp form of
 the nine search kernels against their replicated form, the wide (int64)
 index's instantiations of K3, K4, locate, anchor_scan and K5 against
-their plain versions and the int32 kernels, and the port's main paths
+their plain versions and the int32 kernels, the port's main paths
 on the card against the same paths on the CPU (which the other
-test_torch_*.py files hold against bwt_tpu).
+test_torch_*.py files hold against bwt_tpu), and a refused launch at
+each of the library's launch sites raising KernelLaunchError.
 
 Every test carries the ``cuda`` marker and skips without a card.  The
 file imports neither jax nor bwt_tpu, so it also runs where jax is not
@@ -1293,3 +1294,71 @@ def test_wide_main_path_on_card_matches_cpu(card):
     assert torch.equal(shifted, search.locate(shifted_index(on_cpu), pats,
                                               lens))
     assert bool((shifted > WIDE_SHIFT - len(g) - 2).all())
+
+
+# --------------------------------------------------------------------------
+# a refused launch at each of the library's launch sites: KernelLaunchError
+# for a device-failure code, a plain RuntimeError for an argument error
+# (config.elastic_fallback recovers from it; ops._kernels.device_failure)
+# --------------------------------------------------------------------------
+
+LAUNCH_SITES = ("dp_wavefront_launch", "dp_stitch_launch",
+                "dp_log_stitch_launch", "compose_launch",
+                "backward_search_launch", "unc_sa_launch", "locate_launch",
+                "anchor_scan_launch", "isa_window_launch", "seed_rows_launch",
+                "service_launch", "rnaseq_automaton_launch",
+                "align_automaton_launch", "peer_alloc")
+
+
+@pytest.mark.parametrize("code", (719, 1))
+@pytest.mark.parametrize("launcher", LAUNCH_SITES)
+def test_refused_launch_raises_by_its_code(card, launcher, code):
+    """The library's ``launcher`` refusing its first call with CUDA error
+    ``code``, without launching (``ops._kernels.refusing``), makes the
+    path that reaches it raise: KernelLaunchError, a device failure, for
+    719 (cudaErrorLaunchFailure); a plain RuntimeError, which no recovery
+    catches, for 1 (cudaErrorInvalidValue, the launchers' own argument
+    checks)."""
+    from bwt_tpu_torch import parallel
+    from bwt_tpu_torch.ops import _kernels
+
+    from chip_smoke import mutated_reads
+
+    rng = np.random.default_rng(16)
+    codes = rng.integers(0, 4, 1 << 14).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device=card)
+    starts, reads = mutated_reads(rng, codes, 64)  # with DP stitches to do
+    pats = torch.from_numpy(reads[:, :30].astype(np.int32)).to(card)
+    lens = torch.full((64,), 30, dtype=torch.int32, device=card)
+    jr, jg = _jobs(rng, 8, 32, 64)
+    paths = {
+        "dp_wavefront_launch": lambda: dp_wavefront.nw_fast_batch(
+            jr, np.full(8, 32), jg, np.full(8, 64)),
+        "dp_stitch_launch": lambda: aligner.align_reads(
+            fmi, codes, reads, engine="host"),
+        "service_launch": lambda: rnaseq.rna_seq(
+            fmi, reads[:, :50], engine="host"),
+        "rnaseq_automaton_launch": lambda: rnaseq.rna_seq(
+            fmi, reads[:, :50]),
+        "backward_search_launch": lambda: search.count_matches(
+            fmi, pats, lens),
+        "unc_sa_launch": lambda: search.unc_sa(fmi, lens),
+        "locate_launch": lambda: search.locate(fmi, pats, lens),
+        "anchor_scan_launch": lambda: exact.search_reads(fmi, reads),
+        "isa_window_launch": lambda: search.isa_window(
+            fmi, starts.astype(np.int32), np.full(64, 8, np.int32)),
+        "seed_rows_launch": lambda: search.build_seed_table(fmi, k=4),
+        "peer_alloc": lambda: parallel.mesh.view_in_process(fmi, 2),
+    }
+    # the aligner's device engine reaches K10, then K11a, then K11b
+    for name in ("align_automaton_launch", "dp_log_stitch_launch",
+                 "compose_launch"):
+        paths[name] = lambda: aligner.align_reads(fmi, codes, reads)
+    assert set(paths) == set(LAUNCH_SITES)
+    cls = _kernels.KernelLaunchError if code == 719 else RuntimeError
+    with _kernels.refusing(launcher, 1, code):
+        with pytest.raises(cls, match=f"CUDA error {code}$") as info:
+            paths[launcher]()
+    assert type(info.value) is cls
+    assert _kernels.device_failure(info.value) == (code == 719)
+    torch.cuda.synchronize()  # the card is unharmed

@@ -131,10 +131,12 @@ def test_build_index_text_and_validation():
     cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG, rank_blocksize=8)
     with pytest.raises(ValueError):
         bwt_tpu_torch.build_index(g, config=cfg, device="cpu")
+    # config.elastic_fallback is accepted and, without a device failure,
+    # changes nothing (tests/test_torch_elastic.py drives the recovery)
     cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,
                               elastic_fallback=True)
-    with pytest.raises(NotImplementedError):
-        bwt_tpu_torch.build_index(g, config=cfg, device="cpu")
+    assert_same_index(bwt_tpu.build_index(g),
+                      bwt_tpu_torch.build_index(g, config=cfg, device="cpu"))
 
 
 @pytest.mark.parametrize("dtype", ["auto", "int32", np.int32])

@@ -38,7 +38,9 @@ inside the tests, which run in the pytest process.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import pickle
 import time
 
@@ -230,8 +232,53 @@ def _world_dp(rank, tmp):
         rna_host=_raises(ValueError, lambda: rnaseq.rna_seq(
             fmi, rr[:4], engine="host", mesh=mesh)))
     out["staged"] = pmesh.STAGED_BYTES  # CPU tensors: nothing staged
+
+    # config.elastic_fallback: rank 1's device runs fail once each; it
+    # re-runs its share on the CPU and joins the merge
+    cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,
+                              elastic_fallback=True)
+    err = io.StringIO()
+    with _failing_once(rank == 1), contextlib.redirect_stderr(err):
+        out["elastic"] = dict(
+            align=_norm(aligner.align_reads(fmi, g, reads, with_strand=True,
+                                            mesh=mesh, config=cfg)),
+            rna=rnaseq.rna_seq(fmi, rr, mesh=mesh, config=cfg),
+            search=exact.search_reads(fmi, sr, mesh=mesh, config=cfg))
+    out["elastic_stderr"] = err.getvalue()
     dist.barrier()
     return out
+
+
+@contextlib.contextmanager
+def _failing_once(on: bool):
+    """With ``on``, the first call of each driver's device run (the aligner's
+    device engine, rna_seq's, search_reads' scan) raises
+    ``KernelLaunchError``; the later calls, the re-run's, go through."""
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+    from bwt_tpu_torch.ops import _kernels
+
+    sites = [(aligner, "_align_reads_device"), (rnaseq, "rna_seq_device"),
+             (exact, "_scan_on_cpu")]
+    saved = [getattr(m, name) for m, name in sites]
+
+    def once(orig):
+        calls = []
+
+        def run(*a, **kw):
+            if not calls:
+                calls.append(1)
+                raise _kernels.KernelLaunchError("injected device failure")
+            return orig(*a, **kw)
+        return run
+
+    if on:
+        for (m, name), orig in zip(sites, saved):
+            setattr(m, name, once(orig))
+    try:
+        yield
+    finally:
+        for (m, name), orig in zip(sites, saved):
+            setattr(m, name, orig)
 
 
 def _world_tp(rank, tmp):
@@ -258,6 +305,7 @@ def _world_tp(rank, tmp):
     out["tp"] = {name: _tp_paths(m) for name, m in (("tp4", tp4),
                                                     ("dp2tp2", dp2tp2))}
     out["garbage"] = _tp_garbage(dp2tp2)
+    out["elastic"] = _tp_elastic(dp2tp2)
     out["wide"] = _tp_wide(dp2tp2)
     out["skip"] = _tp_skip(tp4)
     dist.barrier()
@@ -296,6 +344,33 @@ def _tp_paths(mesh):
     out["search"] = exact.search_reads(fmi, [r[:60] for r in reads[:37]],
                                        mesh=mesh)
     return out
+
+
+def _tp_elastic(mesh):
+    """config.elastic_fallback over tp views of ``mesh`` (dp 2 x tp 2), the
+    three drivers given the tp driver problem's whole index: the ranks of
+    dp coordinate 1, a whole tp group (on the CPU a view's reads
+    all-reduce over its group, so the group fails together), fail each
+    device run once, re-run their share on the CPU and join the merge
+    along 'dp'.  Each rank's outputs, whether it failed, and its stderr."""
+    import bwt_tpu_torch
+    from bwt_tpu_torch.models import aligner, exact, rnaseq
+
+    g, reads = tp_driver_problem()
+    fmi = bwt_tpu_torch.build_index(g, sa_sample_rate=8, device="cpu")
+    cfg = dataclasses.replace(bwt_tpu_torch.DEFAULT_CONFIG,
+                              elastic_fallback=True)
+    failed = mesh.coords["dp"] == 1
+    err = io.StringIO()
+    with _failing_once(failed), contextlib.redirect_stderr(err):
+        out = dict(
+            align=_norm(aligner.align_reads(fmi, g, reads, with_strand=True,
+                                            mesh=mesh, config=cfg)),
+            rna=rnaseq.rna_seq(fmi, [r[:50] for r in reads], mesh=mesh,
+                               config=cfg),
+            search=exact.search_reads(fmi, [r[:60] for r in reads[:37]],
+                                      mesh=mesh, config=cfg))
+    return dict(out, failed=failed, stderr=err.getvalue())
 
 
 def _tp_wide(mesh):
@@ -552,6 +627,45 @@ def test_search_reads_mesh_matches_bwt_tpu(worlds):
             assert np.array_equal(o["search"][key], want[key]), (r, key)
             assert np.array_equal(o["few"]["search"][key],
                                   want[key][:3]), (r, key)
+
+
+def test_elastic_mesh_one_rank_recovers(worlds):
+    """config.elastic_fallback over a dp mesh: rank 1's device runs fail,
+    it re-runs its share on the CPU (one stderr line a driver) and joins
+    the merge; every rank's result equals bwt_tpu's single-device run."""
+    outs, ref, _ = worlds
+    for r, o in enumerate(outs["dp"]):
+        got = o["elastic"]
+        assert got["align"] == ref["align"], r
+        assert np.array_equal(got["rna"], ref["rna"]), r
+        for key in ref["search"]:
+            assert np.array_equal(got["search"][key],
+                                  ref["search"][key]), (r, key)
+        lines = o["elastic_stderr"].splitlines()
+        assert len(lines) == (3 if r == 1 else 0), (r, lines)
+        assert all("KernelLaunchError" in ln and "elastic_fallback" in ln
+                   for ln in lines)
+
+
+def test_elastic_tp_group_recovers(worlds):
+    """config.elastic_fallback over dp 2 x tp 2 views: the tp group whose
+    device runs fail re-runs its share on a CPU copy of the whole index
+    the caller passed (one stderr line a driver) and joins the merge;
+    every rank's result equals bwt_tpu's single-device run."""
+    outs, ref, _ = worlds
+    assert sorted(o["elastic"]["failed"] for o in outs["tp"]) == [
+        False, False, True, True]
+    for r, o in enumerate(outs["tp"]):
+        got = o["elastic"]
+        assert got["align"] == ref["tp"]["align"], r
+        assert np.array_equal(got["rna"], ref["tp"]["rna"]), r
+        for key in ref["tp"]["search"]:
+            assert np.array_equal(got["search"][key],
+                                  ref["tp"]["search"][key]), (r, key)
+        lines = got["stderr"].splitlines()
+        assert len(lines) == (3 if got["failed"] else 0), (r, lines)
+        assert all("KernelLaunchError" in ln and "elastic_fallback" in ln
+                   for ln in lines)
 
 
 def test_anchor_scan_mesh_matches_bwt_tpu(worlds):

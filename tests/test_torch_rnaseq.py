@@ -126,16 +126,21 @@ def test_rna_seq_cutoffs_and_service_reuse(env):
 
 def test_unported_engines_raise(env):
     """The device engine needs isa_samples, as in bwt_tpu;
-    elastic_fallback is not ported."""
+    config.elastic_fallback is accepted and, without a device failure,
+    changes no result (tests/test_torch_elastic.py drives the
+    recovery)."""
     g, _, tfmi, _ = env
     with pytest.raises(ValueError, match="isa_samples"):
         trnaseq.rna_seq(dataclasses.replace(tfmi, isa_samples=None),
                         [g[:50]], engine="device")
     with pytest.raises(ValueError, match="unknown engine"):
         trnaseq.rna_seq(tfmi, [g[:50]], engine="tpu")
-    with pytest.raises(NotImplementedError, match="elastic_fallback"):
-        trnaseq.rna_seq(tfmi, [g[:50]],
-                        config=TConfig(elastic_fallback=True))
+    reads = [g[:50], g[700:750]]
+    for engine in ("device", "host"):
+        got = trnaseq.rna_seq(tfmi, reads, engine=engine,
+                              config=TConfig(elastic_fallback=True))
+        assert np.array_equal(got, trnaseq.rna_seq(tfmi, reads,
+                                                   engine=engine))
 
 
 def _norm(x):
