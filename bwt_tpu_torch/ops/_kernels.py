@@ -141,7 +141,7 @@ def library() -> ctypes.CDLL:
                      [P, I, I, I] + [P] * 7 + [I] * 4 + [P, I, I] + IX + TB
                      + [I, I] + TB + [P, P]),
                     ("isa_window_launch",
-                     [P, P, I, I] + IX + TB + [I, I, P, P]),
+                     [P, P, I, I] + IX + TB + [I, I, I, P, P]),
                     ("seed_rows_launch", [I] + IX + [P, P]),
                     # the wide (int64) index's forms: the same arguments,
                     # the index with its bases, 64-bit lengths and limits

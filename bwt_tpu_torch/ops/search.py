@@ -870,8 +870,22 @@ def _isa_args(fmi: FMIndex) -> tuple:
     return _sample_table(fmi, "isa_samples")
 
 
-def _isa_window_kernel(fmi: FMIndex, plo, width, *, W: int = 32):
-    """Launch ``csrc/isa_window.cu`` (K6): one thread a window."""
+def isa_tile(rate: int, W: int) -> int:
+    """The threads a window of the K6 kernel (``csrc/isa_window.cu``) at
+    sample rate ``rate`` and row width ``W``: the most ISA sample segments
+    (the positions p with one ceil(p / rate)) that W consecutive positions
+    touch, rounded down to a power of two, at most a warp (8 at rate 4 and
+    W = 32, where a window of 9 segments gives one thread two; 2 at rate
+    32).  The source's header has each tile's time."""
+    segments = (max(W, 1) + rate - 2) // rate + 1
+    return min(32, 1 << (segments.bit_length() - 1))
+
+
+def _isa_window_kernel(fmi: FMIndex, plo, width, *, W: int = 32,
+                       tile: int | None = None):
+    """Launch ``csrc/isa_window.cu`` (K6): a tile of threads a window, each
+    chaining one ISA sample segment of it; ``tile`` (a power of two up to
+    32) overrides :func:`isa_tile`, for timing the other tiles."""
     global ISA_LAUNCHES
     refuse_wide(fmi, "isa_window")
     _check_index(fmi)
@@ -882,12 +896,13 @@ def _isa_window_kernel(fmi: FMIndex, plo, width, *, W: int = 32):
         raise ValueError("plo and width must be (B,)")
     B = plo.shape[0]
     out = torch.empty((B, W), dtype=torch.int32, device=fmi.device)
-    if B:
+    if B and W > 0:
         lib = _kernels.library()
         err = lib.isa_window_launch(
             plo.data_ptr(), width.data_ptr(), B, W, *_index_args(fmi), *isa,
-            fmi.sa_rate.bit_length() - 1, fmi.length, out.data_ptr(),
-            _stream(fmi.device))
+            fmi.sa_rate.bit_length() - 1, fmi.length,
+            isa_tile(fmi.sa_rate, W) if tile is None else tile,
+            out.data_ptr(), _stream(fmi.device))
         _kernels.check_launch(err, "isa_window kernel launch")
         ISA_LAUNCHES += 1
     return out

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh-only 25  # phase 11 alone, at 2^25 bases
     python3 chip_smoke.py --tp-only 25    # phase 11's tp meshes alone
     python3 chip_smoke.py --elastic-only  # phase 13 alone
+    python3 chip_smoke.py --isa-times 25  # phase 7's K6 cases alone
 
 Phases, one output line each (phases 2 and 7 one per case, phase 10 three, phase 11 six a world), every number beside
 the card's name and power limit:
@@ -83,7 +84,11 @@ the card's name and power limit:
      executor's kernels: K7 on fuzzed rounds of 2^13 lanes mixing all eight
      opcodes (with and without N resolution, the window scan and a k = 12
      seed table) and on the largest rounds recorded from phase 5, equal in
-     all 13 columns and the flag; K6 on 2^16 windows; K5 at k = 12, with
+     all 13 columns and the flag; K6 on 2^16 windows, on the index and on
+     a sa_rate-32 index of the same genome, at the package's tile and at
+     every tile, with each form's chains and LF steps (isa_plan; the
+     schedule alone, on the host; ``--isa-times`` runs these cases alone,
+     for a pairing with an older tree); K5 at k = 12, with
      its bucket-row loads under each schedule (seed_loads); the
      latency of one dependent load (K3, one thread searching a 64- and a
      4,096-base genome substring); then the aligner's: K10 on one chunk of
@@ -1858,6 +1863,233 @@ def _window_steps(fmi, plo, width, W=32) -> int:
     return int((span.clamp(max=r - 1 + W) - 1).clamp(min=0).sum())
 
 
+# the window sets K6 is held on (isa_windows)
+ISA_KINDS = ("random", "past-W", "int32-edges", "W8", "W30", "W64")
+I32_MAX, I32_MIN = (1 << 31) - 1, -(1 << 31)
+
+
+def isa_windows(kind: str, n: int, rng, B: int = 96):
+    """(plo, width, W) numpy int32 windows of one of ISA_KINDS on a genome
+    of length n: random windows (widths -2..32, the tail, plo < 0; W 32);
+    widths past W (33..40: bwt_tpu's cap); plo and width at the int32
+    edges, every pair; and W = 8, 30 (not a multiple of four) and 64."""
+    import numpy as np
+
+    plo = rng.integers(-40, n + 40, size=B).astype(np.int32)
+    if kind == "random":
+        wid = rng.integers(-2, 33, size=B).astype(np.int32)
+        plo[:6] = [0, n - 5, n, -3, n - 31, -31]
+        wid[:6] = [32, 32, 1, 10, 32, 32]
+        return plo, wid, 32
+    if kind == "past-W":
+        wid = rng.integers(33, 41, size=B).astype(np.int32)
+        plo[:5] = [0, 1, -3, n - 39, n - 35]
+        wid[:5] = [40, 40, 40, 40, 33]
+        return plo, wid, 32
+    if kind == "int32-edges":
+        edge_p = [I32_MAX, I32_MAX - 4, I32_MIN, I32_MIN + 3, 0, n, -1, 5]
+        edge_w = [I32_MAX, I32_MIN, 1, 32, I32_MAX - 1, I32_MIN + 1, 0, -1]
+        plo = np.array([p for p in edge_p for _ in edge_w], np.int32)
+        wid = np.array([w for _ in edge_p for w in edge_w], np.int32)
+        return plo, wid, 32
+    W = {"W8": 8, "W30": 30, "W64": 64}[kind]
+    wid = rng.integers(-1, W + 3, size=B).astype(np.int32)
+    plo[:4] = [0, n - W + 1, -W + 2, n]
+    wid[:4] = [W, W, W, W]
+    return plo, wid, W
+
+
+def isa_plan(n: int, rate: int, plo, width, W: int = 32, tile: int = 1,
+             chunk: int | None = None) -> dict:
+    """K6's schedule for windows [plo, plo + width) (numpy arrays) of an
+    index of ``length`` n at sample rate ``rate``, in both forms, counted on
+    the host with the kernels' int32 wraps:
+
+      old_loads  per window, the loads of its one chain in the first form
+                 (fm::isa_chain, a thread a window): the sample at or above
+                 the window's top and an LF step a position down to its
+                 floor or bwt_tpu's cap of rate - 1 + W (its span; the LF
+                 steps are :func:`_window_steps`'s);
+      jlo, jhi   per window, the columns that get a row (none: jlo > jhi);
+      segs       csrc/isa_window.cu's segments, a dict of (B,) arrays for
+                 each chunk of ``chunk`` columns (the row when None) and
+                 each segment from the top: its number m (the positions p
+                 with ceil(p / rate) = m), anchor min(m rate, n), floor and
+                 top (the rows it emits), and ``live``;
+      new_loads  per window, its longest thread's loads in the tile form,
+                 thread q taking segments q, q + ``tile``, ...: a sample
+                 and an LF step a position a segment."""
+    import numpy as np
+
+    shift = rate.bit_length() - 1
+    plo = np.asarray(plo, np.int64)
+    width = np.asarray(width, np.int64)
+
+    def wrap(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    def segment_of(p):
+        return (p >> shift) + ((p & (rate - 1)) != 0)
+
+    p_hi = np.minimum(wrap(plo + width - 1), n)
+    anchor = np.clip((wrap(p_hi + rate - 1) >> shift) << shift, 0, n)
+    span = np.where(width > 0, np.minimum(anchor - np.maximum(plo, 0) + 1,
+                                          rate - 1 + W), 0)
+    lo = anchor - span + 1
+    live = (span > 0) & (p_hi >= lo)
+    jlo = np.where(live, lo - plo, 1)
+    jhi = np.where(live, np.minimum(p_hi - plo, W - 1), 0)
+    chunk = W if chunk is None else chunk
+    segs = []
+    threads = np.zeros((len(plo), tile), np.int64)
+    for c0 in range(0, W, chunk):
+        ja = np.maximum(jlo, c0)
+        jb = np.minimum(jhi, c0 + min(chunk, W - c0) - 1)
+        on = ja <= jb
+        pb, pt = np.where(on, plo + ja, 0), np.where(on, plo + jb, 0)
+        top_m, bot_m = segment_of(pt), segment_of(pb)
+        nseg = np.where(on, top_m - bot_m + 1, 0)
+        for i in range(int(nseg.max(initial=0))):
+            ok = i < nseg
+            m = np.where(ok, top_m - i, 0)
+            a = np.where(m > (n >> shift), n, m << shift)
+            bot = np.where(ok, np.maximum(pb, (m - 1) * rate + 1), 0)
+            threads[:, i % tile] += np.where(ok, a - bot + 1, 0)
+            segs.append(dict(m=m, anchor=a, bot=bot, top=np.minimum(pt, a),
+                             live=ok))
+    return dict(old_loads=np.maximum(span, 0), jlo=jlo, jhi=jhi, segs=segs,
+                new_loads=threads.max(axis=1, initial=0))
+
+
+def isa_counts(plan: dict) -> dict:
+    """The totals of an :func:`isa_plan`: the windows that emit a row, the
+    segments (their most in one window), and each form's LF steps, loads
+    (LF steps and samples) and longest chain in loads."""
+    import numpy as np
+
+    old = plan["old_loads"]
+    nseg = sum(s["live"].astype(np.int64) for s in plan["segs"])
+    new_steps = sum(int(np.where(s["live"], s["anchor"] - s["bot"], 0).sum())
+                    for s in plan["segs"])
+    return dict(
+        windows=int((plan["jlo"] <= plan["jhi"]).sum()),
+        segments=int(np.sum(nseg)), max_segments=int(np.max(nseg, initial=0)),
+        old=dict(steps=int(np.maximum(old - 1, 0).sum()),
+                 loads=int(old.sum()), longest=int(old.max(initial=0))),
+        new=dict(steps=new_steps, loads=new_steps + int(np.sum(nseg)),
+                 longest=int(plan["new_loads"].max(initial=0))))
+
+
+# K6's case in phase 7 and --isa-times; its tiles timed beside the package's
+ISA_CASE = "widths 0..32 across the genome, its tail and plo < 0"
+ISA_TILES = (1, 2, 4, 8, 16, 32)
+
+
+def isa_phase_windows(rng, n: int, B: int, dev):
+    """Phase 7's K6 windows: ``B`` tops across a genome of length n, its
+    tail and plo < 0, widths 0..32; (plo, width) int32 on ``dev``."""
+    import numpy as np
+    import torch
+
+    plo = torch.from_numpy(rng.integers(-40, n + 40, size=B).astype(
+        np.int32)).to(dev)
+    wid = torch.from_numpy(rng.integers(0, 33, size=B).astype(
+        np.int32)).to(dev)
+    plo[:4] = torch.tensor([0, n - 5, n, -3], dtype=torch.int32)
+    wid[:4] = torch.tensor([32, 32, 1, 10], dtype=torch.int32)
+    return plo, wid
+
+
+def isa_case(fmi, plo, wid, reps: int = 20, tiles=ISA_TILES) -> dict:
+    """K6 on the windows (plo, wid) of ``fmi`` on the card against its plain
+    version, bit-equal (tolerance 0), the mean of ``reps`` launches with
+    the host ahead beside its bound (its bytes the windows, the rows and a
+    sector a window's sample, and the index sectors the first form's LF
+    steps touch; its operations a walk step each), with the schedule's
+    counts in both forms (:func:`isa_counts`) and, where the package's K6
+    takes a tile (``search.isa_tile``), its time at each of ``tiles``,
+    each bit-equal too.  An older tree's package gives the first two."""
+    import torch
+
+    from bwt_tpu_torch.ops import search
+
+    B = plo.shape[0]
+    got = search.isa_window(fmi, plo, wid)
+    want, plain_ms = _event_ms(lambda: search.isa_window_plain(fmi, plo, wid))
+    err = _max_abs_diff([got], [want])
+    require(got.shape == want.shape and torch.equal(got, want),
+            f"K6 differs from its plain version at sa_rate {fmi.sa_rate}: "
+            f"max |d| {err}")
+    steps = _window_steps(fmi, plo, wid)
+    bound = bound_of(8 * B + 4 * got.numel() + 32 * B
+                     + min(4 * fmi.buckets.numel(), 32 * steps),
+                     WALK_STEP_OPS * steps)
+    ms = cuda_ms(lambda: search.isa_window(fmi, plo, wid), reps, ahead=True)
+    has_tile = hasattr(search, "isa_tile")
+    tile = search.isa_tile(fmi.sa_rate, 32) if has_tile else 1
+    by_tile = {}
+    for t in tiles if has_tile else ():
+        def run():
+            return search._isa_window_kernel(fmi, plo, wid, tile=t)
+
+        require(torch.equal(run(), want),
+                f"K6 at a tile of {t} differs from its plain version")
+        by_tile[t] = cuda_ms(run, reps, ahead=True)
+    counts = isa_counts(isa_plan(fmi.length, fmi.sa_rate, plo.cpu().numpy(),
+                                 wid.cpu().numpy(), tile=tile))
+    return dict(kernel="isa_window", case=f"{ISA_CASE}, sa_rate "
+                f"{fmi.sa_rate}", shape=f"B={B} W=32", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, tile=tile, by_tile=by_tile,
+                counts=counts, **bound)
+
+
+def isa_text(r: dict) -> str:
+    """An :func:`isa_case` row as phase 7 prints it."""
+    c = r["counts"]
+    return (f"isa_window {r['case']} {r['shape']}: bit-equal (tolerance 0, "
+            f"max |d| {r['max_abs_err']}), kernel {r['ms']:.4f} ms at a tile "
+            f"of {r['tile']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, "
+            f"{r['ops']} operations); {c['windows']} windows with a row, "
+            f"{c['segments']} segments (at most {c['max_segments']} a "
+            f"window); first form (a thread a window): {c['old']['steps']} "
+            f"LF steps, {c['old']['loads']} loads, longest chain "
+            f"{c['old']['longest']} loads; tile form: {c['new']['steps']} LF "
+            f"steps, {c['new']['loads']} loads, longest chain "
+            f"{c['new']['longest']} loads; ms by tile "
+            + (", ".join(f"{t}: {ms:.4f}" for t, ms in r["by_tile"].items())
+               or "none (one thread a window)"))
+
+
+def isa_times(bits: int = 25, seed: int = 0, rates=(4, 32),
+              nwindows: int = 1 << 16) -> list:
+    """``--isa-times``: K6 on phase 7's windows (:func:`isa_phase_windows`)
+    of a 2^bits-base genome indexed at each of ``rates``
+    (:func:`isa_case`), one JSON line a rate.  Run beside an older tree's
+    package to pair the two trees in one call."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+
+    tag = f"[{card_line()}]"
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    plo, wid = isa_phase_windows(rng, len(codes), nwindows, "cuda")
+    out = []
+    for rate in rates:
+        fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=rate,
+                                        device="cuda")
+        r = isa_case(fmi, plo, wid)
+        r.update(bits=bits, card=tag)
+        print(f"isa-times {isa_text(r)} {tag}", flush=True)
+        print("isa-times " + json.dumps(r), flush=True)
+        out.append(r)
+        del fmi
+        torch.cuda.empty_cache()
+    return out
+
+
 def _round_steps(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
     """The work of one service round, from its own results: the search
     steps each loop lane took (from its match count and whether it died; a
@@ -2020,9 +2252,9 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag, forms,
     (:func:`service_case`), the inverse-SA window (K6) and the seed-table
     build (K5) against their plain versions on the card, bit-equal, each
     timed beside its bound."""
-    import numpy as np
     import torch
 
+    import bwt_tpu_torch
     from bwt_tpu_torch.ops import search
     from bwt_tpu_torch.ops import service as sv
 
@@ -2057,29 +2289,20 @@ def phase_service_kernels(fmi, codes_np, rng, table, recorded, tag, forms,
         rows.append(service_case(fmi, case, bank, fields, kw, forms,
                                  latency_us, tag))
 
-    # K6: widths 0..32, tops across the genome, the tail, plo < 0
-    plo = torch.from_numpy(rng.integers(-40, n + 40, size=nwindows).astype(
-        np.int32)).to(dev)
-    wid = torch.from_numpy(rng.integers(0, 33, size=nwindows).astype(
-        np.int32)).to(dev)
-    plo[:4] = torch.tensor([0, n - 5, n, -3], dtype=torch.int32)
-    wid[:4] = torch.tensor([32, 32, 1, 10], dtype=torch.int32)
+    # K6 on the windows of isa_phase_windows, at the index's sa_rate 4 and
+    # on a sa_rate-32 index of the same genome
+    plo, wid = isa_phase_windows(rng, n, nwindows, dev)
     got = search.isa_window(fmi, plo, wid)
-    want, plain_ms = _event_ms(lambda: search.isa_window_plain(fmi, plo, wid))
-    err = _max_abs_diff([got], [want])
-    require(got.shape == want.shape and torch.equal(got, want),
-            f"K6 differs from its plain version: max |d| {err}")
     back = search.unc_sa(fmi, got[0])
     require(back.tolist() == list(range(32)),
             "the window at position 0 does not hold the rows of 0..31")
-    steps = _window_steps(fmi, plo, wid)
-    bound = bound_of(8 * nwindows + 4 * got.numel() + 32 * nwindows
-                     + min(4 * fmi.buckets.numel(), 32 * steps),
-                     WALK_STEP_OPS * steps)
-    ms = cuda_ms(lambda: search.isa_window(fmi, plo, wid), 20, ahead=True)
-    report("isa_window", "widths 0..32 across the genome, its tail and "
-           "plo < 0", f"B={nwindows} W=32", err, ms, plain_ms, bound,
-           f", {steps} steps")
+    fmi32 = bwt_tpu_torch.build_index(codes_np, sa_sample_rate=32, device=dev)
+    for f in (fmi, fmi32):
+        r = isa_case(f, plo, wid)
+        rows.append(r)
+        print(f"phase 7 {isa_text(r)} {tag}", flush=True)
+    del fmi32
+    torch.cuda.empty_cache()
 
     # K5 at the table's k against the plain build.  Its bound is what the
     # function must do: write the table, read each bucket row a live parent
@@ -6028,6 +6251,9 @@ def main(argv=None) -> int:
     ap.add_argument("--wide-times", default="", metavar="BITS,...",
                     help="only time each wide kernel beside the int32 one "
                          "on 2^BITS-base genomes (wide_times) and exit")
+    ap.add_argument("--isa-times", type=int, default=0, metavar="BITS",
+                    help="only time K6 on phase 7's windows of a 2^BITS-base "
+                         "genome at sa_rate 4 and 32 (isa_times) and exit")
     ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-tp-only", action="store_true",
@@ -6063,6 +6289,9 @@ def main(argv=None) -> int:
     if args.wide_times:
         wide_times(tuple(int(b) for b in args.wide_times.split(",")),
                    seed=args.seed)
+        return 0
+    if args.isa_times:
+        isa_times(args.isa_times, seed=args.seed)
         return 0
     if args.rna_profile:
         rna_profile(args.rna_profile, seed=args.seed, trace=args.out)
@@ -6245,7 +6474,7 @@ def main(argv=None) -> int:
          row_of("seed_rows"), None),
         ("isa_window", "bwt_tpu_torch/csrc/isa_window.cu",
          "bwt_tpu/ops/search.py:454", rna["isa_launches"],
-         row_of("isa_window"), None),
+         row_of("isa_window", f"{ISA_CASE}, sa_rate 4"), None),
         # rna_seq's host engine runs K7 (engine="host"); its device engine
         # K9 alone
         ("service", "bwt_tpu_torch/csrc/service.cu",

@@ -34,8 +34,9 @@ from bwt_tpu_torch.models.batch_exec import QueryService, _service_core
 from bwt_tpu_torch.ops import dp_wavefront, search, service
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import (WIDE_KERNELS, WIDE_SHIFT,  # noqa: E402
-                        compose_edge_rows, log_edge_jobs, mixed_reads,
+from chip_smoke import (ISA_KINDS, WIDE_KERNELS, WIDE_SHIFT,  # noqa: E402
+                        compose_edge_rows, isa_windows, log_edge_jobs,
+                        mixed_reads,
                         service_lanes, shifted_counts, shifted_index,
                         stitch_jobs, tp_cases, tp_equal, tp_inputs,
                         tp_launches, tp_outcome, wide_inputs)
@@ -587,6 +588,64 @@ def test_isa_window_kernel_matches_plain(search_env):
         search.isa_window(no_isa, plo, wid)
     assert search.isa_window(fmi, plo[:0], wid[:0]).shape == (0, 32)
     assert search.ISA_LAUNCHES == launches + 1  # nothing to launch
+
+
+@pytest.fixture(scope="module", params=[(2048, 4), (2001, 4), (2048, 32),
+                                        (2001, 32)],
+                ids=["n2048-r4", "n2001-r4", "n2048-r32", "n2001-r32"])
+def isa_env(request):
+    """Genomes whose length is a multiple of the sample rate and not (the
+    tail row 0 at length), at rates 4 and 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    n, rate = request.param
+    rng = np.random.default_rng(n * rate)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    return bwt_tpu_torch.build_index(codes, sa_sample_rate=rate,
+                                     device="cuda"), rng
+
+
+@pytest.mark.parametrize("kind", ISA_KINDS)
+def test_isa_window_kernel_edges_match_plain(isa_env, kind):
+    """K6 bit-equal to its plain version on chip_smoke.isa_windows' sets:
+    the int32 edges, widths past W (the cap's -1 columns), W = 8, 30, 32
+    and 64, through the wrapper's tile and at every tile (at W = 64 and a
+    tile of 1 or 2 in column chunks), one launch a call; a tile that is no
+    power of two up to 32 is refused."""
+    fmi, rng = isa_env
+    plo, wid, W = isa_windows(kind, fmi.length, rng)
+    want = search.isa_window_plain(fmi, plo, wid, W=W)
+    for tile in (None, 1, 2, 4, 8, 16, 32):
+        launches = search.ISA_LAUNCHES
+        got = (search.isa_window(fmi, plo, wid, W=W) if tile is None
+               else search._isa_window_kernel(fmi, plo, wid, W=W, tile=tile))
+        assert search.ISA_LAUNCHES == launches + 1
+        assert got.shape == want.shape and torch.equal(got, want), tile
+    for tile in (0, 3, 64):
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            search._isa_window_kernel(fmi, plo, wid, W=W, tile=tile)
+
+
+@pytest.mark.parametrize("blocks,coord", [(1, 0), (2, 1), (3, 2)],
+                         ids=["1-block", "2-blocks", "3-blocks"])
+def test_isa_window_tp_kernel_matches_plain(isa_env, blocks, coord):
+    """K6's tp form (samples and rows through the blocks' pointers) over
+    a view of the index, bit-equal to the plain version on the whole
+    index, on the random and past-W windows."""
+    from bwt_tpu_torch import parallel
+
+    fmi, rng = isa_env
+    view = parallel.mesh.view_in_process(fmi, blocks, coord)
+    try:
+        for kind in ("random", "past-W", "W64"):
+            plo, wid, W = isa_windows(kind, fmi.length, rng)
+            launches = search.ISA_LAUNCHES
+            got = search.isa_window(view, plo, wid, W=W)
+            assert search.ISA_LAUNCHES == launches + 1
+            assert torch.equal(got, search.isa_window_plain(fmi, plo, wid,
+                                                            W=W)), kind
+    finally:
+        parallel.release_view(view)
 
 
 def _service_both(fmi, bank, f, **kw):
