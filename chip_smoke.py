@@ -7,6 +7,7 @@
     python3 chip_smoke.py --tp-only 25    # phase 11's tp meshes alone
     python3 chip_smoke.py --elastic-only  # phase 13 alone
     python3 chip_smoke.py --isa-times 25  # phase 7's K6 cases alone
+    python3 chip_smoke.py --locate-times 25  # the fused locate alone
 
 Phases, one output line each (phases 2 and 7 one per case, phase 10 three, phase 11 six a world), every number beside
 the card's name and power limit:
@@ -79,7 +80,11 @@ the card's name and power limit:
      replaces and against its plain version at every tile width, whose
      rounds give its chains of dependent loads, and beside its builds at
      each tile; the fused locate on
-     the 30-mers and on the mixed reads, plain and seeded; the walk's step
+     the 30-mers and on the mixed reads, plain and seeded
+     (``--locate-times`` runs these alone, beside K3 and K4 alone on the
+     same reads and the 30-mers presorted by their reversed codes, with
+     the rows, sectors and rounds of its warps counted on the host:
+     locate_counts); the walk's step
      bound and the hunt's no-progress bound raising on the card; then the
      executor's kernels: K7 on fuzzed rounds of 2^13 lanes mixing all eight
      opcodes (with and without N resolution, the window scan and a k = 12
@@ -2090,6 +2095,375 @@ def isa_times(bits: int = 25, seed: int = 0, rates=(4, 32),
     return out
 
 
+# --------------------------------------------------------------------------
+# the fused locate: its rows counted on the host, its kernel timed
+# --------------------------------------------------------------------------
+
+def locate_trace(fmi, pats, lens, seed_table=None) -> dict:
+    """The rows the fused locate fetches for reads (pats, lens), by the
+    plain version's steps on the index's device (the int32 index): for
+    each read, the bucket row of its interval's start at each search step
+    (``rs``, (B, T), with ``ms`` the steps it takes, a prefix), of its end
+    (``re``, with ``me`` the steps whose end lies in another row: the step
+    loads two), the rows of its walk (``wr``, ``wm``), its search and walk
+    steps, whether the interval emptied early (``emptied``: its output -1,
+    no sample read) and whether the walk overran (``over``)."""
+    import torch
+
+    from bwt_tpu_torch.ops import rank as rank_ops
+    from bwt_tpu_torch.ops import search
+
+    p = search._i32(pats, fmi)
+    ln = search._i32(lens, fmi)
+    B, L = p.shape
+    if seed_table is None:
+        eff = ln.clamp(min=1)
+        c0 = search._char_at(p, eff - 1)
+        start = search.take_c(fmi.C, c0)
+        end = search.take_c(fmi.C, c0 + 1)
+        alive = end > start
+        nm = alive.to(torch.int32)
+        t0 = 1
+    else:
+        eff = ln
+        rows = rank_ops.take_fill(seed_table.rows,
+                                  search._seed_key(p, ln, seed_table.k))
+        start, end = rows[:, 0], rows[:, 1]
+        nm, alive = rows[:, 4].to(torch.int32), rows[:, 5] > 0
+        t0 = seed_table.k
+
+    def bucket(i):
+        return rank_ops._adjust(fmi.endloc, i) >> 6
+
+    rs, re_, ms, me = [], [], [], []
+    for t in range(t0, L):
+        active = alive & (t <= eff - 1)
+        if not bool(active.any()):
+            break
+        bs, be = bucket(start), bucket(end)
+        rs.append(bs)
+        re_.append(be)
+        ms.append(active)
+        me.append(active & (be != bs))
+        ns, ne = search._step(fmi, search._char_at(p, eff - 1 - t), start,
+                              end)
+        ok = ne > ns
+        start = torch.where(active, ns, start)
+        end = torch.where(active, ne, end)
+        nm = nm + (active & ok).to(torch.int32)
+        alive = alive & (~active | ok)
+    i, wr, wm = start, [], []
+    mask = fmi.sa_rate - 1
+    for _ in range(fmi.length + 1):
+        live = (i & mask) != 0
+        if not bool(live.any()):
+            break
+        wr.append(bucket(i))
+        wm.append(live)
+        i = torch.where(live, fmi.lf(i), i)
+
+    def stack(xs, like):
+        return torch.stack(xs, 1) if xs else like.new_zeros((B, 0))
+
+    out = dict(rs=stack(rs, start), re=stack(re_, start),
+               ms=stack(ms, alive), me=stack(me, alive),
+               wr=stack(wr, start), wm=stack(wm, alive),
+               over=(i & mask) != 0, emptied=~alive & (nm <= ln - 2))
+    out["search"] = out["ms"].sum(1)
+    out["walk"] = out["wm"].sum(1)
+    return out
+
+
+def locate_order(pats, lens):
+    """The reads (numpy (B, L) codes and (B,) lengths) in the order of
+    their reversed codes: by the last character first, a read that ends
+    before another with the same characters first.  Returns (order,
+    inverse): the reads in that order, and the slot each read takes."""
+    import numpy as np
+
+    p = np.asarray(pats, np.int64)
+    ln = np.asarray(lens, np.int64)
+    L = p.shape[1]
+    j = ln[:, None] - 1 - np.arange(L)[None, :]
+    q = np.where(j >= 0, np.take_along_axis(p, np.clip(j, 0, L - 1), 1),
+                 -(1 << 40))
+    order = np.lexsort(q.T[::-1])
+    inverse = np.empty_like(order)
+    inverse[order] = np.arange(len(order))
+    return order, inverse
+
+
+def _distinct(keys, mask, group: int) -> int:
+    """The distinct values among the entries of ``mask`` in each group of
+    ``group`` consecutive rows of each column of ``keys`` (N, T), summed."""
+    import torch
+
+    N, T = keys.shape
+    pad = (-N) % group
+    if pad:
+        keys = torch.cat([keys, keys.new_zeros((pad, T))])
+        mask = torch.cat([mask, mask.new_zeros((pad, T))])
+    big = torch.iinfo(torch.int64).max
+    k = torch.where(mask, keys.to(torch.int64), big)
+    k = k.reshape(-1, group, T).sort(dim=1).values
+    new = (k[:, 1:] != k[:, :-1]) & (k[:, 1:] != big)
+    return int(new.sum() + (k[:, 0] != big).sum())
+
+
+def locate_counts(tr, order=None) -> dict:
+    """What a :func:`locate_trace` ``tr`` costs csrc/locate.cu's schedule
+    (a thread a read, warps of 32 reads in lockstep: a warp runs its
+    longest search, then its longest walk), the reads in ``order`` (a
+    permutation; None: as given): per read its row fetches (search steps,
+    those that load two rows, walk steps) and its sample loads; the walks'
+    LF steps, the longest, and the mean of a warp's longest; the distinct
+    rows (32-byte sectors) and 128-byte lines a warp's round touches and
+    its L1 requests (each 16-byte load instruction one request a distinct
+    line it touches; a row is two), summed over the warps' rounds; the
+    rounds and the share of lane-rounds that step (``utilization``)."""
+    import torch
+
+    B = tr["rs"].shape[0]
+    dev = tr["rs"].device
+    order = (torch.arange(B, device=dev) if order is None
+             else torch.as_tensor(order, device=dev).long())
+    search, walk = tr["search"].long(), tr["walk"].long()
+    out = dict(reads=B, search_steps=int(search.sum()),
+               two_row_steps=int(tr["me"].sum()), walk_steps=int(walk.sum()),
+               samples=int((~tr["emptied"] & ~tr["over"]).sum()),
+               walk_longest=int(walk.max()) if B else 0)
+    out["row_fetches"] = (out["search_steps"] + out["two_row_steps"]
+                          + out["walk_steps"])
+    rs, re_, ms, me, wr, wm = (tr[x][order] for x in
+                               ("rs", "re", "ms", "me", "wr", "wm"))
+    pad = (-B) % 32
+
+    def longest(x):
+        x = torch.cat([x, x.new_zeros(pad)]) if pad else x
+        return x.reshape(-1, 32).max(1).values
+
+    s, wk = longest(search[order]), longest(walk[order])
+    rows, mask = torch.cat([rs, re_], 1), torch.cat([ms, me], 1)
+    rounds = int((s + wk).sum())
+    out.update(
+        sectors=_distinct(rows, mask, 32) + _distinct(wr, wm, 32),
+        lines=_distinct(rows >> 2, mask, 32) + _distinct(wr >> 2, wm, 32),
+        requests=2 * (_distinct(rs >> 2, ms, 32) + _distinct(re_ >> 2, me, 32)
+                      + _distinct(wr >> 2, wm, 32)),
+        rounds=rounds, walk_warp_longest=float(wk.float().mean()),
+        utilization=int((search + walk).sum()) / max(1, 32 * rounds))
+    return out
+
+
+def walk_only(fmi, idx):
+    """K4 on the rows ``idx``: one launch and no flag read-back, for
+    timing beside the fused kernel."""
+    import torch
+
+    from bwt_tpu_torch.ops import _kernels, search
+
+    flat = idx.reshape(-1).contiguous()
+    out = torch.empty_like(flat)
+    flag = torch.zeros(2, dtype=flat.dtype, device=flat.device)
+    err = _kernels.library().unc_sa_launch(
+        flat.data_ptr(), flat.shape[0], *search._index_args(fmi),
+        *search._samples_args(fmi), fmi.length + 1, 1, out.data_ptr(),
+        flag.data_ptr(), search._stream(fmi.device))
+    require(err == 0, f"unc_sa_launch returned {err}")
+    return out
+
+
+def _frames(report: str) -> list:
+    """(stack frame, spill stores) bytes of each kernel in a compiler report."""
+    return re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      report)
+
+
+def locate_case(fmi, pats, lens, st, name, sort=False) -> dict:
+    """The fused locate on reads (pats, lens) of ``fmi`` (seed table ``st``
+    or None), on the card against its plain version, tolerance 0: the
+    package's kernel (the mean of 20 launches, the host ahead) beside
+    K3 alone on the same reads and K4 alone on their interval starts, with
+    its bound and the counts of :func:`locate_counts`; with ``sort`` also
+    the kernel on the reads presorted by their reversed codes (the sort
+    outside the timing) and the counts in that order."""
+    import torch
+
+    from bwt_tpu_torch.ops import search
+
+    reps = 20
+    n = fmi.length
+    seeded = st is not None
+    n0 = st.k if seeded else 1
+    want = search.locate_plain(fmi, pats, lens, seed_table=st)
+
+    def call():
+        return search.locate_kernel(fmi, pats, lens, seed_table=st)
+
+    got = call()[:-2]
+    require(got.shape == want.shape and torch.equal(got, want),
+            f"locate differs from its plain version ({name}): max |d| "
+            f"{_max_abs_diff([got], [want])}")
+    r = search.search_lanes(fmi, pats, lens, seed_table=st)
+    starts = r["start"].contiguous()
+    steps = int(_search_steps(r, n0, r["nmatched"] >= n0).sum())
+    wsteps = _walk_steps(fmi, starts)
+    B = pats.shape[0]
+    bound = bound_of(4 * pats.numel() + (4 + 4 + 32 * seeded) * B
+                     + _index_bytes(fmi, steps, wsteps, B),
+                     SEARCH_STEP_OPS * steps + WALK_STEP_OPS * wsteps)
+    row = dict(kernel="locate", case=name, shape=f"B={B} L={pats.shape[1]}",
+               max_abs_err=0, n=n, **bound)
+    row["ms"] = cuda_ms(call, reps, ahead=True)
+    row["k3_ms"] = cuda_ms(
+        lambda: search.search_lanes(fmi, pats, lens, seed_table=st), reps,
+        ahead=True)
+    row["walk_ms"] = cuda_ms(lambda: walk_only(fmi, starts), reps, ahead=True)
+    row["search_steps"], row["walk_steps"] = steps, wsteps
+    tr = locate_trace(fmi, pats, lens, st)
+    row["counts"] = locate_counts(tr)
+    if sort:
+        order_np, _ = locate_order(pats.cpu().numpy(), lens.cpu().numpy())
+        order = torch.from_numpy(order_np).to(pats.device)
+        ps, ls = pats[order].contiguous(), lens[order].contiguous()
+
+        def run_sorted():
+            return search.locate_kernel(fmi, ps, ls, seed_table=st)
+
+        require(torch.equal(run_sorted()[:-2], want[order]),
+                f"locate on the sorted reads differs ({name})")
+        row["sorted_ms"] = cuda_ms(run_sorted, reps, ahead=True)
+        row["counts_sorted"] = locate_counts(tr, order)
+    del tr
+    return row
+
+
+def locate_text(r: dict) -> str:
+    """A :func:`locate_case` row as ``--locate-times`` prints it."""
+    text = (f"locate {r['case']} {r['shape']}: bit-equal (tolerance 0), "
+            f"the call {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['search_steps']} search and "
+            f"{r['walk_steps']} walk steps); K3 alone {r['k3_ms']:.4f} ms, "
+            f"K4 alone on the starts {r['walk_ms']:.4f} ms")
+    if "sorted_ms" in r:
+        text += (f"; the reads presorted by their reversed codes "
+                 f"{r['sorted_ms']:.4f} ms")
+    for key, what in (("counts", "caller's order"),
+                      ("counts_sorted", "presorted")):
+        c = r.get(key)
+        if c:
+            B = c["reads"]
+            text += (f"; {what}: per read {c['row_fetches'] / B:.2f} row "
+                     f"fetches ({c['search_steps'] / B:.2f} search steps, "
+                     f"{c['two_row_steps'] / B:.2f} of two rows, "
+                     f"{c['walk_steps'] / B:.2f} walk steps, longest "
+                     f"{c['walk_longest']}, a warp's longest "
+                     f"{c['walk_warp_longest']:.2f}), {c['sectors'] / B:.2f} "
+                     f"sectors, {c['lines'] / B:.2f} lines, "
+                     f"{c['requests'] / B:.2f} L1 requests a read, "
+                     f"{c['rounds']} rounds, {100 * c['utilization']:.1f} % "
+                     f"of lane-rounds step")
+    return text
+
+
+def locate_times(bits: int = 25, seed: int = 0) -> list:
+    """``--locate-times``: the fused locate on a 2^bits-base genome (sa_rate
+    4) on phase 4's 2^20 30-mers plain and k = 12-seeded and on phase 7's
+    mixed reads whose walks start on a real row (:func:`locate_case`: the
+    package's kernel beside K3 and K4 alone, the presorted 30-mers, the
+    counts), then the wide index's kernel beside the int32 one on the
+    30-mers of the same genome, plain and seeded, and on 2^20 30-mers of a
+    2^WIDE_BIG_BITS-base genome (its tables past the L2), in turns; one JSON
+    line a case.  A copy of this file beside an older tree's package times
+    that tree's kernel the same way, for a pairing in one call."""
+    import numpy as np
+    import torch
+
+    import bwt_tpu_torch
+    from bwt_tpu_torch.ops import _kernels, search
+
+    tag = f"[{card_line()}]"
+    nq, nmixed, reps = 1 << 20, 1 << 16, 20
+    _kernels.build(verbose=True)
+    regs = [r for key, tp, wide, r in _forms()
+            if key == "locate" and not tp and not wide]
+    require(regs and all(f == ("0", "0")
+                         for f in _frames(_kernels.LAST_REPORT)),
+            "a kernel of the package keeps values in local memory")
+    print(f"locate-times the package's locate kernel: {regs} registers "
+          f"(int32, replicated: the tile and global forms), no stack "
+          f"frame {tag}", flush=True)
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=1 << bits).astype(np.uint8)
+    fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4, device="cuda")
+    n = fmi.length
+    table = search.build_seed_table(fmi, k=SEED_K)
+    starts = rng.integers(0, n - 30, size=nq)
+    kmers = torch.from_numpy(codes[np.add.outer(starts, np.arange(30))]
+                             .astype(np.int32)).cuda()
+    klens = torch.full((nq,), 30, dtype=torch.int32, device="cuda")
+    mp, ml = mixed_reads(rng, codes, nmixed)
+    mp, ml = torch.from_numpy(mp).cuda(), torch.from_numpy(ml).cuda()
+    out = []
+    for name, p, ln, st in (
+            ("30-mers, plain", kmers, klens, None),
+            (f"30-mers, seeded k={SEED_K}", kmers, klens, table),
+            ("mixed reads, plain", mp, ml, None),
+            (f"mixed reads, seeded k={SEED_K}", mp, ml, table)):
+        if name.startswith("mixed"):
+            s0 = search.search_lanes(fmi, p, ln, seed_table=st)["start"]
+            real = ((s0 >= 0) & (s0 <= n)) | (s0 == -2 ** 31)
+            p, ln = p[real].contiguous(), ln[real].contiguous()
+        r = locate_case(fmi, p, ln, st, name,
+                        sort=name.startswith("30-mers"))
+        r.update(bits=bits, card=tag)
+        print(f"locate-times {locate_text(r)} {tag}", flush=True)
+        print("locate-times " + json.dumps(r), flush=True)
+        out.append(r)
+        torch.cuda.empty_cache()
+    # the wide index's kernel beside the int32 one, in turns
+    for b in (bits, WIDE_BIG_BITS):
+        if b != bits:
+            del fmi, table
+            torch.cuda.empty_cache()
+            codes = rng.integers(0, 4, size=1 << b).astype(np.uint8)
+            fmi = bwt_tpu_torch.build_index(codes, sa_sample_rate=4,
+                                            device="cuda")
+            starts = rng.integers(0, fmi.length - 30, size=nq)
+            kmers = torch.from_numpy(codes[np.add.outer(
+                starts, np.arange(30))].astype(np.int32)).cuda()
+        wide = bwt_tpu_torch.build_index(codes, sa_sample_rate=4,
+                                         index_dtype=np.int64, device="cuda")
+        tabs = ({id(fmi): search.build_seed_table(fmi, k=SEED_K),
+                 id(wide): search.build_seed_table(wide, k=SEED_K)}
+                if b == bits else {})
+        for seeded in ((False, True) if b == bits else (False,)):
+            def run(f):
+                return search.locate_kernel(
+                    f, kmers, klens,
+                    seed_table=tabs[id(f)] if seeded else None)
+
+            got_w, got_n = run(wide)[:-2], run(fmi)[:-2]
+            require(torch.equal(got_w, got_n.long()),
+                    f"the wide locate differs from the int32 one at 2^{b}")
+            ms = {"wide": [], "int32": []}
+            for _ in range(2):
+                for f, key in ((wide, "wide"), (fmi, "int32")):
+                    ms[key].append(cuda_ms(lambda: run(f), reps, ahead=True))
+            r = dict(kernel="locate_wide", bits=b, shape=f"B={nq} L=30",
+                     case=f"30-mers, {'seeded k=%d' % SEED_K if seeded else 'plain'}",
+                     ms_wide=ms["wide"], ms_int32=ms["int32"], card=tag)
+            print(f"locate-times locate_wide {r['case']} on 2^{b} bases: wide "
+                  f"{ms['wide'][0]:.4f}; {ms['wide'][1]:.4f} ms, int32 "
+                  f"{ms['int32'][0]:.4f}; {ms['int32'][1]:.4f} ms, equal "
+                  f"{tag}", flush=True)
+            print("locate-times " + json.dumps(r), flush=True)
+            out.append(r)
+        del wide, tabs
+        torch.cuda.empty_cache()
+    return out
+
+
 def _round_steps(fmi, bank, fields, cols, *, ext, walk, seed_k) -> dict:
     """The work of one service round, from its own results: the search
     steps each loop lane took (from its match count and whether it died; a
@@ -3510,8 +3884,7 @@ def finish_tile_builds(started) -> tuple[dict, dict, dict]:
         so, se = proc.communicate()
         require(proc.returncode == 0, f"nvcc failed on the build {key!r}:\n"
                                       f"{' '.join(cmd)}\n{so}{se}")
-        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                            r"stores", se)
+        frames = _frames(se)
         require(frames and all(f == ("0", "0") for f in frames),
                 f"the build {key!r} keeps values in local memory: {frames}")
         lib = ctypes.CDLL(str(path))
@@ -6254,6 +6627,11 @@ def main(argv=None) -> int:
     ap.add_argument("--isa-times", type=int, default=0, metavar="BITS",
                     help="only time K6 on phase 7's windows of a 2^BITS-base "
                          "genome at sa_rate 4 and 32 (isa_times) and exit")
+    ap.add_argument("--locate-times", type=int, default=0, metavar="BITS",
+                    help="only time the fused locate on a 2^BITS-base genome "
+                         "beside K3 and K4 and the presorted reads, with its "
+                         "counts, and its wide form at 2^BITS and 2^28 "
+                         "(locate_times), and exit")
     ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-tp-only", action="store_true",
@@ -6293,6 +6671,9 @@ def main(argv=None) -> int:
     if args.isa_times:
         isa_times(args.isa_times, seed=args.seed)
         return 0
+    if args.locate_times:
+        locate_times(args.locate_times, seed=args.seed)
+        return 0
     if args.rna_profile:
         rna_profile(args.rna_profile, seed=args.seed, trace=args.out)
         return 0
@@ -6311,8 +6692,7 @@ def main(argv=None) -> int:
     lib = _kernels.build(verbose=True)
     build_s = time.perf_counter() - t0
     regs = re.findall(r"Used (\d+) registers", _kernels.LAST_REPORT)
-    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                        _kernels.LAST_REPORT)
+    frames = _frames(_kernels.LAST_REPORT)
     require(len(regs) >= 21 and len(frames) == len(regs),
             "the compiler's report does not list every kernel")
     require(all(f == ("0", "0") for f in frames),

@@ -462,6 +462,106 @@ def test_locate_kernel_matches_plain(search_env, seeded):
             assert got is want
 
 
+def _locate_cases(codes, fmi, case, rng):
+    """The fused locate's reads on the card: genome 30-mers; mixed reads
+    (L = 100: ragged, N, codes outside the tables); 30-mers of which four
+    end in code 4, whose start C[4] = n + 1 lies past the suffix array
+    (on the all-A genome their walks overrun); a batch of 4,099 (not a
+    multiple of a warp or a block); 33 rows of 3,000 characters (as long
+    as the genome allows) with lengths 1 to the row."""
+    n = fmi.length
+    if case == "mixed":
+        return mixed_reads(rng, codes, 4099, L=100)
+    if case == "long-rows":
+        L, B = min(3000, n), 33
+        pats = codes[np.add.outer(rng.integers(0, n - L + 1, size=B),
+                                  np.arange(L))].astype(np.int32)
+        return pats, rng.integers(1, L + 1, size=B).astype(np.int32)
+    B = 4099 if case == "odd-batch" else 1 << 13
+    pats = codes[np.add.outer(rng.integers(0, n - 30, size=B),
+                              np.arange(30))].astype(np.int32)
+    if case == "overrun":
+        pats[[5, 77, 4000, 8000], 29] = 4
+    return pats, np.full(B, 30, np.int32)
+
+
+def _locate_raw(fmi, pats, lens, table):
+    """What the locate kernel leaves, from the plain versions: each read's
+    position, -1 where the interval emptied early, the row it walked from
+    where the walk overran; then the flag (the overruns, and B - the first
+    of them in the reads' order)."""
+    r = search.backward_search_plain(fmi, pats, lens, seed_table=table)
+    pos, over = search.unc_sa_flagged(fmi, r["start"])
+    emptied = ~r["alive"] & (r["nmatched"] <= lens - 2)
+    lanes = over.nonzero().flatten()
+    flag = [int(over.sum()), pats.shape[0] - int(lanes[0]) if len(lanes)
+            else 0]
+    return torch.cat([torch.where(emptied & ~over, -1, pos).cpu(),
+                      torch.tensor(flag, dtype=pos.dtype)])
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["plain", "seeded"])
+@pytest.mark.parametrize("case", ["30-mers", "mixed", "overrun", "odd-batch",
+                                  "long-rows"])
+def test_locate_schedule_matches_plain(search_env, case, seeded):
+    """The fused locate's whole output (positions, and the flag with the
+    first overrunning read in the caller's order), one launch, equal to
+    what the plain versions leave: 30-mers (the block's reads staged in
+    shared memory), reads of 100 and 3,000 characters (read from global
+    memory), a batch that is no multiple of a block; the wrapper raises
+    naming that read's row, as the plain version does."""
+    codes, fmi, _ = search_env
+    rng = np.random.default_rng(sum(map(ord, case)))
+    pats, lens = _locate_cases(codes[:fmi.length], fmi, case, rng)
+    pats, lens = torch.from_numpy(pats).cuda(), torch.from_numpy(lens).cuda()
+    table = search.build_seed_table(fmi, k=4) if seeded else None
+    want = _locate_raw(fmi, pats, lens, table)
+    launches = search.LOCATE_LAUNCHES
+    got = search.locate_kernel(fmi, pats, lens, seed_table=table).cpu()
+    assert search.LOCATE_LAUNCHES == launches + 1
+    assert torch.equal(got, want)
+    if case == "overrun" and not seeded and not codes[:fmi.length].any():
+        # on the all-A genome the four walks from row n + 1 overrun
+        assert int(want[-2]) == 4 and int(want[-1]) == pats.shape[0] - 5
+    if int(want[-2]):
+        row = int(want[pats.shape[0] - int(want[-1])])
+        with pytest.raises(RuntimeError, match=f"row {row} "):
+            search.locate(fmi, pats, lens, seed_table=table)
+        with pytest.raises(RuntimeError, match=f"row {row} "):
+            search.locate_plain(fmi, pats, lens, seed_table=table)
+
+
+@pytest.mark.parametrize("form", ["tp-1", "tp-3", "wide", "wide-tp-2"])
+def test_locate_schedule_forms_match_plain(search_env, wide_env, form):
+    """The fused locate over tp views of 1 and 3 blocks (allocations of
+    this process), on the wide index and over a wide view of 2 blocks:
+    its whole output equal to the plain version's on the whole index, on
+    the mixed reads and on the 30-mers with overrunning reads, plain and
+    seeded."""
+    from bwt_tpu_torch import parallel
+
+    codes, fmi, _ = search_env
+    _, wide, _ = wide_env
+    index = wide if form.startswith("wide") else fmi
+    blocks = int(form[-1]) if "tp" in form else 0
+    view = (parallel.mesh.view_in_process(index, blocks, blocks - 1)
+            if blocks else index)
+    try:
+        for case in ("mixed", "overrun"):
+            rng = np.random.default_rng(7)
+            pats, lens = _locate_cases(codes[:fmi.length], fmi, case, rng)
+            pats = torch.from_numpy(pats).cuda()
+            lens = torch.from_numpy(lens).cuda()
+            for table in (None, search.build_seed_table(index, k=4)):
+                got = search.locate_kernel(view, pats, lens,
+                                           seed_table=table).cpu()
+                assert torch.equal(got, _locate_raw(index, pats, lens,
+                                                    table))
+    finally:
+        if blocks:
+            parallel.release_view(view)
+
+
 def test_anchor_scan_bounds_raise_on_card(card):
     """The hunt that makes no progress and the walk from a row past the
     suffix array raise on the card, from the kernel's flag."""
