@@ -47,8 +47,15 @@ from bwt_tpu_torch import codec
 from bwt_tpu_torch.ops import _kernels
 from bwt_tpu_torch.ops import rank as rank_ops
 from bwt_tpu_torch.ops import suffix
+from bwt_tpu_torch.utils import profiling
 
 SA_SAMPLE_RATE = 32  # seqindex.c:173-176
+
+# the stages of the latest build_index on this process (build.upload, then
+# build.sort, or build.isa from a given SA, build.bwt, build.rows): their
+# seconds and, on a card, the allocator's peak at each one's end; replaced
+# by each build
+LAST_BUILD: profiling.Phases | None = None
 
 
 def default_device() -> torch.device:
@@ -435,36 +442,49 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
 
 def _build(host: np.ndarray, sa, device, verify: bool, sa_rate: int,
            wide: bool) -> FMIndex:
+    """The build on ``device`` as the stages of a new :data:`LAST_BUILD`."""
+    global LAST_BUILD
+    record = LAST_BUILD = profiling.Phases()
     length = len(host)
-    codes = torch.from_numpy(host).to(device).to(torch.int64)
+    with profiling.stage(record, "build.upload", device):
+        codes = torch.from_numpy(host).to(device).to(torch.int64)
+        if sa is not None:
+            sa = (sa if isinstance(sa, torch.Tensor) else torch.from_numpy(
+                np.array(sa, np.int32))).to(device, torch.int32)
     if sa is not None:
-        sa = (sa if isinstance(sa, torch.Tensor) else torch.from_numpy(
-            np.array(sa, np.int32))).to(device, torch.int32)
         if tuple(sa.shape) != (length + 1,):
             raise ValueError(f"sa of shape {tuple(sa.shape)} for a genome of "
                              f"{length} bases (want ({length + 1},))")
         if verify and not suffix.verify_suffix_array(codes, sa):
             raise AssertionError("suffix array verification failed")
-        return _finish_index(codes, sa, length, sa_rate)
-    sa, isa = suffix.suffix_array_with_isa(
-        codes, dtype=torch.int64 if wide else torch.int32)
+        return _finish_index(codes, sa, length, sa_rate, record)
+    with profiling.stage(record, "build.sort", device):
+        sa, isa = suffix.suffix_array_with_isa(
+            codes, dtype=torch.int64 if wide else torch.int32)
     if verify and not suffix.verify_suffix_array(codes, sa):
         raise AssertionError("suffix array verification failed")
-    bwt, endloc = suffix.bwt_from_isa(codes, isa)
-    return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
-                     isa[::sa_rate], wide=wide)
+    with profiling.stage(record, "build.bwt", device):
+        bwt, endloc = suffix.bwt_from_isa(codes, isa)
+    with profiling.stage(record, "build.rows", device):
+        return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
+                         isa[::sa_rate], wide=wide)
 
 
 def _finish_index(codes: torch.Tensor, sa: torch.Tensor, length: int,
-                  sa_rate: int) -> FMIndex:
+                  sa_rate: int, record: profiling.Phases) -> FMIndex:
     """Finish from a given SA (the sharded build, tests): one scatter
-    rebuilds the ISA, then the BWT by the ISA permutation."""
+    rebuilds the ISA, then the BWT by the ISA permutation; stages
+    ``build.isa``, ``build.bwt`` and ``build.rows`` of ``record``."""
     m = sa.shape[0]
-    isa = torch.zeros(m, dtype=torch.int32, device=sa.device)
-    isa[sa.long()] = torch.arange(m, dtype=torch.int32, device=sa.device)
-    bwt, endloc = suffix.bwt_from_isa(codes, isa)
-    return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
-                     isa[::sa_rate])
+    dev = sa.device
+    with profiling.stage(record, "build.isa", dev):
+        isa = torch.zeros(m, dtype=torch.int32, device=dev)
+        isa[sa.long()] = torch.arange(m, dtype=torch.int32, device=dev)
+    with profiling.stage(record, "build.bwt", dev):
+        bwt, endloc = suffix.bwt_from_isa(codes, isa)
+    with profiling.stage(record, "build.rows", dev):
+        return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
+                         isa[::sa_rate])
 
 
 def index_from_parts(*, bwt_codes, sa_samples, endloc, length: int,

@@ -548,7 +548,7 @@ class BatchExecutor:
                       "rng_calls": 0, "svc_launches": 0, "t_svc": 0.0,
                       "t_dp": 0.0,
                       "t_dp_finish": 0.0,  # the host decode's part of t_dp
-                      "t_gen": 0.0, "dp_shapes": {}}  # "L1xL2" -> jobs
+                      "t_gen": 0.0}
 
     def _lanes(self, fields: np.ndarray) -> list[torch.Tensor]:
         """(k, B) host int32 fields -> k device (B,) tensors, one copy."""
@@ -662,8 +662,6 @@ class BatchExecutor:
                       if small[:, 3].max(initial=0) > _RLE_R else None)
             pend.append((small, ops_np, members))
             self.stats["dp_calls"] += 1
-            shapes = self.stats["dp_shapes"]
-            shapes[f"{L1}x{L2}"] = shapes.get(f"{L1}x{L2}", 0) + len(members)
         self.stats["t_dp"] += time.perf_counter() - t0
         return pend
 

@@ -39,6 +39,7 @@ import torch
 from bwt_tpu_torch.index import FMIndex, refuse_wide
 from bwt_tpu_torch.ops import _kernels
 from bwt_tpu_torch.ops import rank as rank_ops
+from bwt_tpu_torch.utils.profiling import span as _span
 
 
 def _i32(x, fmi: FMIndex) -> torch.Tensor:
@@ -716,13 +717,14 @@ def locate_kernel(fmi: FMIndex, patterns, lengths, seed_table=None):
     out = torch.empty(B + 2, dtype=fmi.pos_dtype, device=dev)
     out[B:] = 0
     if B:
-        lib = _kernels.library()
-        launch = lib.locate_wide_launch if fmi.wide else lib.locate_launch
-        err = launch(
-            patterns.data_ptr(), lengths.data_ptr(), B, L, *seed,
-            *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
-            _stream(dev))
-        _kernels.check_launch(err, "locate kernel launch")
+        with _span("search.locate.launch"):
+            lib = _kernels.library()
+            launch = lib.locate_wide_launch if fmi.wide else lib.locate_launch
+            err = launch(
+                patterns.data_ptr(), lengths.data_ptr(), B, L, *seed,
+                *_index_args(fmi), *_samples_args(fmi), out.data_ptr(),
+                _stream(dev))
+            _kernels.check_launch(err, "locate kernel launch")
         LOCATE_LAUNCHES += 1
     return out
 
@@ -732,15 +734,17 @@ def locate(fmi: FMIndex, patterns, lengths, seed_table=None):
     interval emptied before the final character.  Every read's interval
     start is walked, so a start past the suffix array raises
     RuntimeError as :func:`unc_sa` does.  On the card this is one launch
-    of the locate kernel; on the CPU, the plain version."""
-    if not _on_card(fmi):
-        return locate_plain(fmi, patterns, lengths, seed_table)
-    out = locate_kernel(fmi, patterns, lengths, seed_table)
-    B = out.shape[0] - 2
-    n_over, top = out[B:].tolist()  # top = B - the first lane over
-    if n_over:  # the lane's slot holds the row it walked from
-        raise _overrun(int(out[B - top]), fmi.length + 1, fmi.length)
-    return out[:B]
+    of the locate kernel; on the CPU, the plain version.  The call is the
+    span ``search.locate``, the launch ``search.locate.launch``."""
+    with _span("search.locate"):
+        if not _on_card(fmi):
+            return locate_plain(fmi, patterns, lengths, seed_table)
+        out = locate_kernel(fmi, patterns, lengths, seed_table)
+        B = out.shape[0] - 2
+        n_over, top = out[B:].tolist()  # top = B - the first lane over
+        if n_over:  # the lane's slot holds the row it walked from
+            raise _overrun(int(out[B - top]), fmi.length + 1, fmi.length)
+        return out[:B]
 
 
 # --------------------------------------------------------------------------

@@ -5,10 +5,16 @@ and query phases, converted at a hardcoded 2.5 GHz (rdtscll.h:16-18,
 fmitest.c:143-149).  Here:
 
   * :class:`Phases`, accumulating wall-clock timers with derived rates;
-  * :data:`ACTIVE` and :func:`span`: the device engines' host stages run
-    inside ``span(name)``, which times them against ``ACTIVE`` when a
-    caller has set it to a :class:`Phases` and does nothing (no clock, no
-    synchronisation) while it is ``None``;
+  * :data:`ACTIVE` and :func:`span`: the device engines' host stages, and
+    ``locate``'s call and launch, run inside ``span(name)``, which times
+    them against ``ACTIVE`` when a caller has set it to a :class:`Phases`,
+    and marks them on the timeline of a ``torch.profiler`` that is
+    recording (``record_function``'s C++ range: a host event beside the
+    trace's device intervals, casting none among them); with neither, it
+    is one shared no-op (no clock, no synchronisation, no profiler call);
+  * :func:`stage`: a stage of a job that runs once (the index build,
+    ``index.LAST_BUILD``), always timed into its own :class:`Phases`, with
+    the card's allocator peak at its end, and marked as a span;
   * :func:`device_trace`, a ``torch.profiler`` window that writes a Chrome
     trace (``chrome://tracing``, ui.perfetto.dev) under a log directory.
 """
@@ -20,6 +26,9 @@ import os
 import time
 from pathlib import Path
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 
 class Phases:
     """Accumulating wall-clock phase timers.
@@ -29,17 +38,29 @@ class Phases:
     ...     build()
     >>> ph.rate("build", genome_len)   # bases/s
     >>> print(ph.report())
+
+    Given a ``device``, a phase ends in a synchronise on a card and keeps
+    in ``peaks[name]`` the allocator's peak at its end
+    (``torch.cuda.max_memory_allocated``, never reset here; None on the
+    CPU).
     """
 
     def __init__(self):
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.peaks: dict[str, int | None] = {}
 
     @contextlib.contextmanager
-    def __call__(self, name: str):
+    def __call__(self, name: str, device: torch.device | None = None):
         t0 = time.perf_counter()
         try:
             yield self
+            if device is not None:
+                peak = None
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                    peak = torch.cuda.max_memory_allocated(device)
+                self.peaks[name] = peak
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -61,15 +82,55 @@ class Phases:
 
 
 # the process-wide collector the instrumented stages time against; None
-# (the default) turns every span into a no-op
+# (the default) leaves the spans to the profiler alone
 ACTIVE: Phases | None = None
 
-_NOOP = contextlib.nullcontext()
+
+class _Idle:
+    """The shared no-op span.  Its enter and exit are ``"".format``, a C
+    function that takes any arguments and returns ``""``, which is false,
+    so an exception passes through: about half the cost of
+    ``contextlib.nullcontext``'s two Python methods, on a path that every
+    ``locate`` call takes twice."""
+
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
+
+
+_NOOP = _Idle()
+
+# a range on the profiler's timeline: the C++ context manager behind
+# ``record_function``'s Python one, where this torch has it (1-2 against
+# 13-14 us a range with a profiler recording, on an H100's host; and it
+# leaves less of a ``locate`` call outside every host event)
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 _autograd_profiler.record_function)
+
+
+@contextlib.contextmanager
+def _marked(name: str, phases: Phases):
+    with _RANGE(name), phases(name):
+        yield
 
 
 def span(name: str):
-    """A timing context for stage ``name`` against :data:`ACTIVE`."""
-    return ACTIVE(name) if ACTIVE is not None else _NOOP
+    """A context for stage ``name``: timed against :data:`ACTIVE`, and a
+    range on the timeline while a profiler records.  Names never start
+    with ``bench.`` (a benchmark's own spans)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP if ACTIVE is None else ACTIVE(name)
+    if ACTIVE is None:
+        return _RANGE(name)
+    return _marked(name, ACTIVE)
+
+
+@contextlib.contextmanager
+def stage(record: Phases, name: str, device: torch.device):
+    """Stage ``name`` of a job that runs once: timed into ``record`` with
+    its end synchronised and its allocator peak (:class:`Phases` with a
+    device), inside ``span(name)``."""
+    with span(name), record(name, device):
+        yield
 
 
 @contextlib.contextmanager
@@ -77,7 +138,6 @@ def device_trace(logdir):
     """A ``torch.profiler`` window over the region, CPU and (with a card)
     CUDA activity; on exit the Chrome trace is written to
     ``logdir/trace_<pid>_<ns>.json``.  Yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
