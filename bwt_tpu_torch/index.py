@@ -346,15 +346,16 @@ def recovery_copy(fmi: FMIndex, err: BaseException) -> FMIndex:
 
 def pack_words(codes: torch.Tensor, length: int) -> torch.Tensor:
     """Codes 0..3 -> 16-lane 2-bit words (int32 bit patterns) plus one
-    zero pad word."""
+    zero pad word, a lane at a time: a byte a base besides the words."""
     BW = codec.BASES_PER_WORD
     nwords = (length + BW - 1) // BW
-    padded = torch.zeros(nwords * BW, dtype=torch.int64, device=codes.device)
+    padded = torch.zeros(nwords * BW, dtype=torch.uint8, device=codes.device)
     padded[:length] = codes
-    shifts = 2 * torch.arange(BW, dtype=torch.int64, device=codes.device)
-    words = (padded.reshape(nwords, BW) << shifts).sum(dim=1)
-    words = torch.where(words >= (1 << 31), words - (1 << 32), words)
-    return torch.cat([words, words.new_zeros(1)]).to(torch.int32)
+    lanes = padded.reshape(nwords, BW)
+    words = torch.zeros(nwords + 1, dtype=torch.int32, device=codes.device)
+    for j in range(BW):
+        words[:nwords] |= lanes[:, j].to(torch.int32) << (2 * j)
+    return words
 
 
 def _assemble(bwt_codes, sa_samples, endloc, length: int, sa_rate: int,
@@ -442,12 +443,14 @@ def build_index(seq, *, sa_sample_rate: int | None = None,
 
 def _build(host: np.ndarray, sa, device, verify: bool, sa_rate: int,
            wide: bool) -> FMIndex:
-    """The build on ``device`` as the stages of a new :data:`LAST_BUILD`."""
+    """The build on ``device`` as the stages of a new :data:`LAST_BUILD`.
+    The codes stay one byte a base; the sort's record is
+    ``suffix.LAST_SORT``."""
     global LAST_BUILD
     record = LAST_BUILD = profiling.Phases()
     length = len(host)
     with profiling.stage(record, "build.upload", device):
-        codes = torch.from_numpy(host).to(device).to(torch.int64)
+        codes = torch.from_numpy(host).to(device)
         if sa is not None:
             sa = (sa if isinstance(sa, torch.Tensor) else torch.from_numpy(
                 np.array(sa, np.int32))).to(device, torch.int32)
@@ -466,8 +469,11 @@ def _build(host: np.ndarray, sa, device, verify: bool, sa_rate: int,
     with profiling.stage(record, "build.bwt", device):
         bwt, endloc = suffix.bwt_from_isa(codes, isa)
     with profiling.stage(record, "build.rows", device):
-        return _assemble(bwt, sa[::sa_rate], endloc, length, sa_rate,
-                         isa[::sa_rate], wide=wide)
+        # the samples alone outlive the sort's arrays
+        samples = sa[::sa_rate].clone(), isa[::sa_rate].clone()
+        del codes, sa, isa
+        return _assemble(bwt, samples[0], endloc, length, sa_rate,
+                         samples[1], wide=wide)
 
 
 def _finish_index(codes: torch.Tensor, sa: torch.Tensor, length: int,

@@ -7,8 +7,9 @@ the nine search kernels against their replicated form, the wide (int64)
 index's instantiations of K3, K4, locate, anchor_scan and K5 against
 their plain versions and the int32 kernels, the port's main paths
 on the card against the same paths on the CPU (which the other
-test_torch_*.py files hold against bwt_tpu), and a refused launch at
-each of the library's launch sites raising KernelLaunchError.
+test_torch_*.py files hold against bwt_tpu), the build's memory a base
+and its suffix sort in buckets against the CPU's, and a refused launch
+at each of the library's launch sites raising KernelLaunchError.
 
 Every test carries the ``cuda`` marker and skips without a card.  The
 file imports neither jax nor bwt_tpu, so it also runs where jax is not
@@ -31,7 +32,7 @@ from bwt_tpu_torch import codec
 from bwt_tpu_torch.config import DEFAULT
 from bwt_tpu_torch.models import aligner, exact, rnaseq
 from bwt_tpu_torch.models.batch_exec import QueryService, _service_core
-from bwt_tpu_torch.ops import dp_wavefront, search, service
+from bwt_tpu_torch.ops import dp_wavefront, search, service, suffix
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (ISA_KINDS, WIDE_KERNELS, WIDE_SHIFT,  # noqa: E402
@@ -1565,3 +1566,33 @@ def test_refused_launch_raises_by_its_code(card, launcher, code):
     assert type(info.value) is cls
     assert _kernels.device_failure(info.value) == (code == 719)
     torch.cuda.synchronize()  # the card is unharmed
+
+
+def test_build_memory_and_buckets_on_card(card, monkeypatch):
+    """The build of a 2^25-base genome allocates at most 24 bytes a base
+    on the card beyond what was there before it, its suffix sort split
+    into buckets; the card's SA and ISA of a 2^20-base genome sorted in
+    at least 4 buckets equal the CPU's single-bucket sort, int32 and
+    int64."""
+    rng = np.random.default_rng(25)
+    n = 1 << 25
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    torch.cuda.synchronize(card)
+    before = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    fmi = bwt_tpu_torch.build_index(g, device=card)
+    torch.cuda.synchronize(card)
+    used = torch.cuda.max_memory_allocated(card) - before
+    assert used <= 24 * n, used / n
+    assert suffix.LAST_SORT.buckets[0] > 1
+    del fmi
+    small = torch.from_numpy(rng.integers(0, 4, 1 << 20).astype(np.uint8))
+    for dtype in (torch.int32, torch.int64):
+        want = suffix.suffix_array_with_isa(small, dtype=dtype)
+        assert suffix.LAST_SORT.buckets == [1] * suffix.LAST_SORT.rounds
+        with monkeypatch.context() as mp:
+            mp.setattr(suffix, "BUCKET", 1 << 18)
+            got = suffix.suffix_array_with_isa(small.to(card), dtype=dtype)
+        assert suffix.LAST_SORT.buckets[0] >= 4
+        for w, c in zip(want, got):
+            assert torch.equal(c.cpu(), w)
